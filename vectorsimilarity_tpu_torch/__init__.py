@@ -1,0 +1,47 @@
+"""vectorsimilarity_tpu_torch — the PyTorch/CUDA port of ``vectorsimilarity_tpu``.
+
+A second package beside the JAX one, ported slice by slice (ROADMAP.md).
+This slice serves the flat (brute-force) index: add / delete / overwrite,
+exact k-NN (batched and device-resident), range queries, batch iterators and
+timeouts; L2 / IP / Cosine; fp32 through the hand-written group-min kernel
+(``csrc/bf_topk_gm.cu``) and every other type through the exact streaming
+scan. Stores live on an explicit torch device. The package imports torch and
+never jax.
+"""
+
+from .types import (  # noqa: F401
+    DEFAULT_BLOCK_SIZE,
+    BFParams,
+    QueryReplyOrder,
+    VecSearchMode,
+    VecSimAlgo,
+    VecSimIndexBasicInfo,
+    VecSimIndexDebugInfo,
+    VecSimIndexStatsInfo,
+    VecSimMetric,
+    VecSimParams,
+    VecSimQueryParams,
+    VecSimQueryReplyCode,
+    VecSimType,
+)
+from .core.interface import VecSimIndexBase  # noqa: F401
+from .core.results import QueryReply, filter_results_by_id, merge_replies  # noqa: F401
+from .indexes.factory import create_index  # noqa: F401
+from .ops.normalize import normalize_blob as normalize  # noqa: F401
+
+__version__ = "0.1.0"
+
+
+def set_timeout_callback(cb) -> None:
+    """``VecSim_SetTimeoutCallbackFunction`` parity."""
+    VecSimIndexBase.set_timeout_callback(cb)
+
+
+def set_log_callback(cb) -> None:
+    """``VecSim_SetLogCallbackFunction`` parity."""
+    VecSimIndexBase.set_log_callback(cb)
+
+
+def set_write_mode(mode) -> None:
+    """``VecSim_SetWriteMode`` parity."""
+    VecSimIndexBase.set_write_mode(mode)

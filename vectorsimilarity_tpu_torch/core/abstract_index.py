@@ -1,0 +1,211 @@
+"""Shared machinery for device-backed vector indexes.
+
+Counterpart of ``vectorsimilarity_tpu/core/abstract_index.py`` (the
+reference's ``VecSimIndexAbstract``, ``vec_sim_index.h:42-390``): owns
+dim/type/metric/blockSize, the vector ``BlockStore`` on an explicit torch
+device, and the preprocessing pipeline (the reference's calculator +
+preprocessors, ``spaces/computer/*``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from ..ops.normalize import needs_query_normalize
+from ..types import (
+    DEFAULT_BLOCK_SIZE,
+    VecSimIndexBasicInfo,
+    VecSimMetric,
+    VecSimType,
+    numpy_dtype,
+)
+from .interface import VecSimIndexBase
+from .labels import MultiLabelMap, SingleLabelMap
+from .store import BlockStore, FieldSpec, _bucket_capacity
+
+
+def pow2_bucket(n: int, lo: int = 1) -> int:
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+class DeviceVectorIndex(VecSimIndexBase):
+    """Base for device-backed indexes: vector store + labels + preprocessing."""
+
+    def __init__(
+        self,
+        *,
+        vtype: VecSimType,
+        dim: int,
+        metric: VecSimMetric,
+        multi: bool,
+        block_size: int,
+        device="cpu",
+        log_ctx: Any = None,
+        initial_capacity: int = 0,
+    ):
+        super().__init__(log_ctx)
+        if dim <= 0:
+            raise ValueError("dim must be positive")
+        self.vtype = VecSimType(vtype)
+        self.dim = int(dim)
+        self.metric = VecSimMetric(metric)
+        self.multi = bool(multi)
+        self.block_size = int(block_size) or DEFAULT_BLOCK_SIZE
+        self.device = torch.device(device)
+
+        self.np_dtype = numpy_dtype(self.vtype)
+        self.is_int = self.vtype in (VecSimType.INT8, VecSimType.UINT8)
+        self.store_kind = "int" if self.is_int else "float"
+
+        # fp64 stores compute in fp64 on the device (torch has it natively;
+        # the JAX package does so only with x64 enabled).
+        fields: dict[str, FieldSpec] = {"data": FieldSpec((self.dim,), self.np_dtype)}
+        fields["label"] = FieldSpec((), np.int64, fill=-1)
+        if self.multi:
+            fields["slot"] = FieldSpec((), np.int32, fill=-1)
+        if self.metric == VecSimMetric.L2:
+            # Precomputed ||v||^2 turns L2 scans into one matmul plus rank-1
+            # updates (exact f32 for int inputs).
+            sq_dtype = np.float64 if self.vtype == VecSimType.FLOAT64 else np.float32
+            fields["sqnorm"] = FieldSpec((), sq_dtype)
+        if self.is_int and self.metric == VecSimMetric.Cosine:
+            fields["norm"] = FieldSpec((), np.float32)
+
+        self.store = BlockStore(fields, self.block_size, device=self.device)
+        if initial_capacity:
+            self.store._resize(_bucket_capacity(initial_capacity, self.block_size))
+        self.labels = MultiLabelMap() if self.multi else SingleLabelMap()
+
+    # ------------------------------------------------------------------
+    # Preprocessing (reference: preprocessors.h pipeline)
+    # ------------------------------------------------------------------
+
+    def _as_batch(self, blob: np.ndarray) -> np.ndarray:
+        arr = np.asarray(blob)
+        if arr.dtype != self.np_dtype:
+            arr = arr.astype(self.np_dtype)
+        if arr.ndim == 1:
+            arr = arr[None, :]
+        if arr.shape[-1] != self.dim:
+            raise ValueError(f"expected dim {self.dim}, got {arr.shape[-1]}")
+        return arr
+
+    def _normalize_rows(self, arr: np.ndarray) -> np.ndarray:
+        acc = np.float64 if arr.dtype == np.float64 else np.float32
+        v = arr.astype(acc)
+        norms = np.sqrt(np.sum(v * v, axis=-1, keepdims=True))
+        norms[norms == 0] = 1.0
+        return (v / norms).astype(arr.dtype)
+
+    def preprocess_storage(self, blob: np.ndarray) -> dict[str, np.ndarray]:
+        """Blob -> storage field rows (CosinePreprocessor semantics:
+        float cosine normalizes storage; int cosine keeps raw + norms)."""
+        arr = self._as_batch(blob)
+        rows: dict[str, np.ndarray] = {}
+        if self.metric == VecSimMetric.Cosine and not self.is_int:
+            arr = self._normalize_rows(arr)
+        rows["data"] = arr
+        if "sqnorm" in self.store.fields:
+            if self.is_int:
+                v64 = arr.astype(np.int64)
+                rows["sqnorm"] = np.sum(v64 * v64, axis=-1).astype(np.float32)
+            else:
+                v = arr.astype(np.float32 if arr.dtype != np.float64 else np.float64)
+                rows["sqnorm"] = np.sum(v * v, axis=-1).astype(
+                    self.store.fields["sqnorm"].dtype
+                )
+        if "norm" in self.store.fields:
+            v = arr.astype(np.int64)
+            rows["norm"] = np.sqrt(np.sum(v * v, axis=-1).astype(np.float32))
+        return rows
+
+    def preprocess_queries(self, queries: np.ndarray):
+        """Queries -> (host batch ready for upload, query_norms or None)."""
+        arr = self._as_batch(queries)
+        qnorms = None
+        if needs_query_normalize(self.vtype, self.metric):
+            arr = self._normalize_rows(arr)
+        elif self.is_int and self.metric == VecSimMetric.Cosine:
+            v = arr.astype(np.int64)
+            qnorms = np.sqrt(np.sum(v * v, axis=-1).astype(np.float32))
+        return arr, qnorms
+
+    def to_device(self, arr: Optional[np.ndarray]) -> Optional[torch.Tensor]:
+        """Upload a preprocessed host batch to the store's device."""
+        if arr is None:
+            return None
+        if arr.dtype.name == "bfloat16":
+            return torch.from_numpy(arr.astype(np.float32)).to(self.device, torch.bfloat16)
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def store_tuple(self, dev: dict[str, torch.Tensor]) -> tuple:
+        """Device tensors in the layout ``ops.distances`` expects."""
+        if self.is_int:
+            return (dev["data"], dev.get("norm"))
+        return (dev["data"], dev.get("sqnorm"))
+
+    # ------------------------------------------------------------------
+    # Host-side exact distance (GetDistanceFrom parity)
+    # ------------------------------------------------------------------
+
+    def host_distance(self, idx: int, query: np.ndarray, qnorm=None) -> float:
+        """Distance between stored row ``idx`` and a preprocessed query."""
+        self.store.pull_host("data", "norm")  # no-op unless device-adopted
+        v = self.store.host["data"][idx]
+        if self.is_int:
+            ip = int(np.dot(v.astype(np.int64), query.astype(np.int64)))
+            if self.metric == VecSimMetric.IP:
+                return float(1.0 - np.float32(ip))
+            if self.metric == VecSimMetric.Cosine:
+                denom = np.float32(self.store.host["norm"][idx]) * np.float32(qnorm)
+                return float(1.0 - np.float32(ip) / denom)
+            d = v.astype(np.int64) - query.astype(np.int64)
+            return float(np.dot(d, d))
+        acc = np.float64 if v.dtype == np.float64 else np.float32
+        vv, qq = v.astype(acc), query.astype(acc)
+        if self.metric == VecSimMetric.L2:
+            d = vv - qq
+            return float(np.dot(d, d))
+        return float(1.0 - np.dot(vv, qq))
+
+    # ------------------------------------------------------------------
+    # Common info plumbing
+    # ------------------------------------------------------------------
+
+    @property
+    def index_size(self) -> int:
+        return self.store.count
+
+    @property
+    def index_label_count(self) -> int:
+        return len(self.labels)
+
+    def _basic_info(self, algo) -> VecSimIndexBasicInfo:
+        return VecSimIndexBasicInfo(
+            algo=algo,
+            metric=self.metric,
+            type=self.vtype,
+            isMulti=self.multi,
+            isTiered=False,
+            isDisk=False,
+            blockSize=self.block_size,
+            dim=self.dim,
+        )
+
+    @property
+    def memory_bytes(self) -> int:
+        return self.store.memory_bytes
+
+    def contains_label(self, label: int) -> bool:
+        return label in self.labels
+
+    def get_stored_vectors(self, label: int) -> list[np.ndarray]:
+        """White-box test hook (reference ``getDataByLabel``)."""
+        self.store.pull_host("data")  # no-op unless device-adopted
+        return [self.store.host["data"][i].copy() for i in self.labels.ids_of(label)]

@@ -1,0 +1,318 @@
+"""Device-resident vector storage — the port's ``DataBlocksContainer``.
+
+Counterpart of ``vectorsimilarity_tpu/core/store.py``. One padded 2-D tensor
+per field (SoA) on an explicit device, sized in doubling capacity buckets.
+Deletion keeps the reference's swap-with-last semantics (ids stay dense in
+[0, count)).
+
+Host numpy mirrors are authoritative (they serve ``getDataByLabel``,
+serialization and label mapping); the device copy is synced lazily before
+compute. Unlike the JAX store, whose arrays are immutable and replaced on
+each sync, the sync here writes the device tensors IN PLACE (``copy_`` of
+the appended suffix, ``index_copy_`` of dirty rows and deferred moves): a
+dict returned by an earlier ``device_arrays`` call sees later syncs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..types import DEFAULT_BLOCK_SIZE
+
+
+def _bucket_capacity(n: int, block_size: int) -> int:
+    """Smallest doubling bucket >= n (min one block)."""
+    cap = max(block_size, DEFAULT_BLOCK_SIZE)
+    while cap < n:
+        cap *= 2
+    return cap
+
+
+def torch_dtype(dtype: np.dtype) -> torch.dtype:
+    """The torch dtype of a numpy dtype (bfloat16 via ml_dtypes' name)."""
+    if np.dtype(dtype).name == "bfloat16":
+        return torch.bfloat16
+    return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
+
+
+def _to_device(rows: np.ndarray, device) -> torch.Tensor:
+    """A copy of host rows on ``device``. Always a copy, also on the CPU:
+    the device tensors are written in place and must not alias the host
+    mirrors."""
+    if rows.dtype.name == "bfloat16":  # torch cannot wrap ml_dtypes arrays
+        return torch.from_numpy(rows.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(rows)).to(device, copy=True)
+
+
+class FieldSpec:
+    """One SoA field: trailing shape + dtype + pad value. The host mirror
+    and the device copy hold the same type."""
+
+    def __init__(self, shape: tuple, dtype, fill=0):
+        self.shape = tuple(shape)
+        self.dtype = np.dtype(dtype)
+        self.fill = fill
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
+
+
+class BlockStore:
+    """Growable SoA store with swap-with-last delete and lazy device sync.
+
+    Usage::
+
+        store = BlockStore({"data": FieldSpec((dim,), np.float32)}, block_size,
+                           device="cuda")
+        ids = store.append({"data": rows})           # rows [B, dim]
+        moved = store.swap_delete(id)                # reference swap semantics
+        dev = store.device_arrays()                  # synced torch tensors
+    """
+
+    def __init__(self, fields: dict[str, FieldSpec], block_size: int = DEFAULT_BLOCK_SIZE,
+                 *, device="cpu"):
+        self.fields = dict(fields)
+        self.block_size = block_size or DEFAULT_BLOCK_SIZE
+        self.device = torch.device(device)
+        self.count = 0
+        self.capacity = 0
+        self.host: dict[str, np.ndarray] = {}
+        self._device: dict[str, torch.Tensor] = {}
+        # Fields whose DEVICE copy is authoritative (adopt_device); host
+        # mirrors are pulled on demand.
+        self._host_stale: set[str] = set()
+        # Per-field dirty rows: a label update must not re-upload the (much
+        # larger) vector column of the same row.
+        self._dirty_rows: dict[str, set[int]] = {n: set() for n in self.fields}
+        self._dirty_from: int = 0  # appended/overwritten suffix start
+        # Deferred swap-delete row moves on device-authoritative fields:
+        # {field: {dst: original_src}} applied as ONE gather+scatter per
+        # field at the next sync, instead of pulling the device copy to the
+        # host on every delete.
+        self._pending_moves: dict[str, dict[int, int]] = {n: {} for n in self.fields}
+        self._device_capacity = -1
+        self._resize(_bucket_capacity(1, self.block_size))
+
+    # -- capacity management -------------------------------------------------
+
+    def _resize(self, new_cap: int) -> None:
+        if self._host_stale and self._device:
+            # Growth re-seeds host arrays and re-uploads them wholesale; any
+            # device-authoritative content must reach the host first.
+            self.pull_host()
+        for name, spec in self.fields.items():
+            arr = np.full((new_cap, *spec.shape), spec.fill, dtype=spec.dtype)
+            if name in self.host and self.count:
+                arr[: self.count] = self.host[name][: self.count]
+            self.host[name] = arr
+        self.capacity = new_cap
+
+    def _maybe_grow(self, extra: int) -> None:
+        need = self.count + extra
+        if need > self.capacity:
+            self._resize(_bucket_capacity(need, self.block_size))
+
+    def maybe_shrink(self) -> None:
+        """Shrink capacity when count has dropped far below the bucket."""
+        target = _bucket_capacity(max(self.count, 1), self.block_size)
+        if target < self.capacity and self.count <= target // 2:
+            self._resize(target)
+
+    # -- mutation ------------------------------------------------------------
+
+    def append(self, rows: dict[str, np.ndarray]) -> np.ndarray:
+        """Append a batch of rows; returns the assigned dense ids."""
+        n = len(next(iter(rows.values())))
+        self._maybe_grow(n)
+        ids = np.arange(self.count, self.count + n, dtype=np.int64)
+        for name, vals in rows.items():
+            self.host[name][self.count : self.count + n] = vals
+        self._dirty_from = min(self._dirty_from, self.count)
+        self.count += n
+        return ids
+
+    def set_row(self, idx: int, rows: dict[str, np.ndarray]) -> None:
+        """Overwrite one existing row (update-in-place path)."""
+        for name, vals in rows.items():
+            self.host[name][idx] = vals
+            self._dirty_rows[name].add(int(idx))
+
+    def swap_delete(self, idx: int) -> int:
+        """Delete row ``idx`` by moving the last row into it.
+
+        Returns the id of the row that moved into ``idx`` (== idx when the
+        deleted row was the last). Mirrors ``removeElement`` swap-with-last
+        (``data_blocks_container.h``).
+        """
+        last = self.count - 1
+        if idx != last:
+            for name in self.fields:
+                if name in self._host_stale and not self._host_holds(name, last):
+                    # Device-authoritative row: defer the move to the next
+                    # device sync. Chains resolve at record time so one flat
+                    # gather from the untouched device tensor is exact; a
+                    # pending host write to ``idx`` is superseded.
+                    mv = self._pending_moves[name]
+                    mv[int(idx)] = mv.get(int(last), int(last))
+                    self._dirty_rows[name].discard(int(idx))
+                else:
+                    # Host holds the authoritative content for row ``last``
+                    # (filled mirror, un-synced append suffix, or set_row).
+                    if name in self._host_stale:
+                        # This newer host write supersedes an earlier
+                        # deferred move into ``idx``: moves flush first.
+                        self._pending_moves[name].pop(int(idx), None)
+                    self.host[name][idx] = self.host[name][last]
+                    self._dirty_rows[name].add(int(idx))
+        self.count = last
+        return last
+
+    def _host_holds(self, name: str, row: int) -> bool:
+        """Whether the host mirror holds the newest content of ``row``."""
+        return row >= self._dirty_from or row in self._dirty_rows[name]
+
+    def mark_dirty(self, idx: int, *fields: str) -> None:
+        """Record a direct host-array edit so device sync picks it up.
+
+        Pass the touched field names; with none given, all fields are
+        assumed touched (safe but costs sync bandwidth)."""
+        for name in fields or self.fields:
+            self._dirty_rows[name].add(int(idx))
+
+    # -- device sync ---------------------------------------------------------
+
+    def _flush_moves(self) -> None:
+        """Apply deferred swap-delete row moves to the device tensors.
+
+        One gather (a copy) then one in-place scatter per field. Runs BEFORE
+        host uploads in ``device_arrays`` (a host write to a moved row is
+        newer and must win) and before any ``pull_host``."""
+        for name, mv in self._pending_moves.items():
+            if not mv:
+                continue
+            dst = torch.tensor(list(mv.keys()), dtype=torch.int64, device=self.device)
+            src = torch.tensor(list(mv.values()), dtype=torch.int64, device=self.device)
+            mv.clear()
+            arr = self._device[name]
+            arr.index_copy_(0, dst, arr.index_select(0, src))
+
+    def device_arrays(self) -> dict[str, torch.Tensor]:
+        """Return the device tensors, applying pending host mutations.
+
+        A capacity change re-uploads every field; otherwise appends upload
+        the dirty suffix with one ``copy_`` per field and scattered row edits
+        with one ``index_copy_`` per field, in place.
+        """
+        self._flush_moves()
+        if self._device_capacity != self.capacity:
+            for name in self.fields:
+                self._device[name] = _to_device(self.host[name], self.device)
+            self._device_capacity = self.capacity
+            for dset in self._dirty_rows.values():
+                dset.clear()
+            self._dirty_from = self.count
+            return dict(self._device)
+
+        start = self._dirty_from
+        if start < self.count:
+            for name in self.fields:
+                chunk = _to_device(self.host[name][start : self.count], self.device)
+                self._device[name][start : self.count].copy_(chunk)
+            for name, dset in self._dirty_rows.items():
+                self._dirty_rows[name] = {r for r in dset if r < start}
+
+        for name, dset in self._dirty_rows.items():
+            if not dset:
+                continue
+            idx = np.fromiter(dset, dtype=np.int64, count=len(dset))
+            rows = _to_device(self.host[name][idx], self.device)
+            self._device[name].index_copy_(0, torch.from_numpy(idx).to(self.device), rows)
+            dset.clear()
+        self._dirty_from = self.count
+        return dict(self._device)
+
+    def adopt_device(self, arrays: dict[str, torch.Tensor], count: int) -> None:
+        """Bulk-load device-resident data as the compute copy.
+
+        For ingest pipelines whose data is already on the device: the given
+        tensors (on the store's device, padded to a capacity bucket) become
+        the device copy directly — no host->device upload. Host mirrors are
+        allocated and NOT filled; host-side reads are only valid after
+        ``pull_host`` or after the caller fills them. Missing fields get
+        zeroed device tensors.
+        """
+        cap = next(iter(arrays.values())).shape[0]
+        if cap != _bucket_capacity(cap, self.block_size):
+            raise ValueError(f"pad adopted arrays to a capacity bucket, got {cap} rows")
+        for name, arr in arrays.items():
+            spec = self.fields[name]
+            if arr.device != self.device or arr.dtype != spec.torch_dtype:
+                raise ValueError(
+                    f"field {name!r}: expected {spec.torch_dtype} on {self.device}, "
+                    f"got {arr.dtype} on {arr.device}"
+                )
+            if tuple(arr.shape) != (cap, *spec.shape):
+                raise ValueError(f"field {name!r}: shape {tuple(arr.shape)}")
+        self._host_stale = set()
+        self._device = {}
+        self.count = 0
+        self._resize(cap)
+        self.count = count
+        for name, spec in self.fields.items():
+            if name in arrays:
+                self._device[name] = arrays[name].contiguous()
+            else:
+                self._device[name] = torch.zeros(
+                    (cap, *spec.shape), dtype=spec.torch_dtype, device=self.device
+                )
+        self._device_capacity = cap
+        for dset in self._dirty_rows.values():
+            dset.clear()
+        for mv in self._pending_moves.values():
+            mv.clear()
+        self._dirty_from = count
+        self._host_stale = set(arrays)
+
+    def pull_host(self, *fields: str) -> None:
+        """Download device-authoritative fields into their host mirrors.
+
+        With no names given, pulls every field marked host-stale (by
+        ``adopt_device`` or ``mark_host_stale``). Rows whose newest content
+        is on the host (the un-synced append suffix and rows written by
+        ``set_row`` or a swap-delete from that suffix) are NOT overwritten.
+        The JAX store overwrites them (``vectorsimilarity_tpu/core/store.py``
+        ``pull_host``), which brings a deleted row's content back after
+        ``adopt_device`` -> append -> ``swap_delete`` -> ``pull_host``.
+        """
+        self._flush_moves()
+        names = [f for f in (fields or tuple(self._host_stale)) if f in self._host_stale]
+        if not names or not self.count:
+            self._host_stale -= set(names)
+            return
+        top = min(self._dirty_from, self.count)
+        for name in names:
+            spec = self.fields[name]
+            keep = sorted(r for r in self._dirty_rows[name] if r < top)
+            saved = self.host[name][keep].copy()
+            dev = self._device[name][:top]
+            if dev.dtype == torch.bfloat16:
+                dev = dev.float()
+            self.host[name][:top] = dev.cpu().numpy().astype(spec.dtype, copy=False)
+            self.host[name][keep] = saved
+        self._host_stale -= set(names)
+
+    def mark_host_stale(self, *fields: str) -> None:
+        """Declare device copies authoritative for ``fields`` (device-side
+        construction wrote them); host reads must ``pull_host`` first."""
+        self._host_stale.update(fields)
+
+    # -- accounting ----------------------------------------------------------
+
+    @property
+    def memory_bytes(self) -> int:
+        """Actual bytes held: host mirrors + device tensors."""
+        host = sum(a.nbytes for a in self.host.values())
+        dev = sum(t.numel() * t.element_size() for t in self._device.values())
+        return host + dev
