@@ -6,35 +6,47 @@
 Phases, each of which raises (and the script exits nonzero) on any failed
 check:
 
-1. Build the group-min kernel (``csrc/bf_topk_gm.cu``) from the sources in
-   this checkout with nvcc, printing the build time and ptxas' register and
-   spill report.
+1. Build every kernel source under ``vectorsimilarity_tpu_torch/csrc/`` from
+   this checkout with nvcc (one process per source, started together),
+   printing the build time and ptxas' registers and spills per kernel.
 2. Generate the headline store on the card: 1M x 768 fp32 embedding-like
    unit vectors from a seeded ``torch.Generator``, capacity 2^20.
-3. Hold the kernel against its plain PyTorch version on the card, at small
-   odd shapes (count off the tile grid, B = 1, 7, 1024, every metric, a
-   dim that is not a multiple of 4) and at the headline store with B = 1 and
-   B = 1024: group minima within 1e-5 absolute, +inf at the same places.
-   Times both.
-4. The main path at full width: the store is adopted into the port's
-   ``BruteForceIndex`` on the card, then ``topk_query_batch`` (host API)
-   and ``search_knn_device`` (B = 1024, k = 10) run with the kernel's launch
-   count and the fallback count set to 0 just before; 32 queries are held
-   against a float64 exact ground truth. The kernel must have launched and
-   the fallback must not have run. Then an all-ties store must trip the
-   fallback and still return ids 0..k-1.
-5. QPS of ``search_knn_device`` at the headline shape (median of 3 rounds
-   over staged batches), beside the card's name and power limit.
+3. Hold the group-min kernel's fp32 lane against its plain PyTorch version on
+   the card at small odd shapes (count off the tile grid, B = 1, 7, 1024,
+   every metric, a dim that is not a multiple of 4): group minima within 1e-5
+   absolute, +inf at the same places.
+4. Hold every kernel (group-min K1, fused top-k K3, per-tile top-c K4) in
+   every lane (fp32, bf16, fp16, int8, uint8) against its plain version at
+   small odd shapes: B = 1, 7, 130, count off the grid, k > count, dims that
+   are not multiples of 4 or 16, all three metrics. Float lanes within 1e-5
+   with ids equal except at near-ties; integer lanes equal (Cosine, which
+   rounds one fp32 divide, within 1e-6).
+5. The main path at full width, once per store type. The fp32 store is
+   adopted into the port's ``BruteForceIndex`` (built with no ``device``, so
+   on the card); then a float16, a bfloat16, an int8 and a uint8 store of the
+   same rows follow, each made from the fp32 rows and freed after its turn.
+   With every launch and fallback count set to 0 just before,
+   ``topk_query_batch`` (host API) and ``search_knn_device`` (B = 1024) run
+   at k = 10 (group-min), k = 100 (fused) and k = 500 (top-c); each engine's
+   kernel must have launched and no fallback may have run; 32 queries per k
+   are held against an exact float64 ground truth. Then each kernel is held
+   against its plain version at the full-width shape and both are timed, and
+   the QPS of ``search_knn_device`` is taken per k.
+6. An all-ties store must trip the group-min fallback, and a store with all
+   near rows in one tile must trip the top-c truncation fallback; both must
+   still answer exactly.
 
-It prints one JSON line of kernel results and, last, one JSON line
-``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
-package beside it, it exits nonzero and prints no result.
+Every timing line ends with the card's name and power limit. The script
+prints one JSON line of kernel results (one entry per kernel and lane) and,
+last, one JSON line ``{"ok": true, "device": {...}}``. Without a CUDA card,
+or without the package beside it, it exits nonzero and prints no result.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -45,11 +57,32 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-N, CAP, DIM, BATCH, K = 1_000_000, 1 << 20, 768, 1024, 10
+N, CAP, DIM, BATCH = 1_000_000, 1 << 20, 768, 1024
+KS = (10, 100, 500)  # one k per engine band: group-min, fused, top-c
+TILE_N, GROUP_N, LOCAL_C = 4096, 256, 32  # the port's config defaults
 SEED = 0
 TOL = 1e-5  # fp32 vs fp32 in another summation order; see csrc/bf_topk_gm.cu
+INT_COS_TOL = 1e-6  # one fp32 divide rounded on each side
 
-# (B, tiles, tile_n, group_n, dim, count, metric name) — small odd shapes.
+LANES = ("f32", "f16", "bf16", "s8", "u8")
+DTYPES = {"f32": torch.float32, "f16": torch.float16, "bf16": torch.bfloat16,
+          "s8": torch.int8, "u8": torch.uint8}
+VTYPES = {"f32": "FLOAT32", "f16": "FLOAT16", "bf16": "BFLOAT16", "s8": "INT8", "u8": "UINT8"}
+# Published dense peaks of one H100 SXM for each lane's type (operations per
+# second) and its memory rate (bytes per second).
+PEAK_OPS = {"f32": 67e12, "f16": 989e12, "bf16": 989e12, "s8": 1979e12, "u8": 1979e12}
+PEAK_BYTES = 3.35e12
+KERNELS = {  # wrapper name -> (C entry point, source, TPU kernel it replaces)
+    "gm": ("bf_topk_gm", "vectorsimilarity_tpu_torch/csrc/bf_topk_gm.cu",
+           "vectorsimilarity_tpu/ops/pallas/bf_topk.py:509"),
+    "fused": ("bf_topk_fused", "vectorsimilarity_tpu_torch/csrc/bf_topk_fused.cu",
+              "vectorsimilarity_tpu/ops/pallas/bf_topk.py:196"),
+    "topc": ("bf_topk_topc", "vectorsimilarity_tpu_torch/csrc/bf_topk_topc.cu",
+             "vectorsimilarity_tpu/ops/pallas/bf_topk.py:742"),
+}
+
+# (B, tiles, tile_n, group_n, dim, count, metric name) — small odd shapes of
+# the group-min kernel's fp32 lane.
 SMALL_SHAPES = [
     (1, 3, 4096, 256, 768, 9000, "Cosine"),
     (7, 2, 4096, 256, 100, 5000, "L2"),
@@ -57,6 +90,14 @@ SMALL_SHAPES = [
     (33, 4, 1024, 256, 768, 4000, "L2"),
     (130, 8, 64, 16, 64, 300, "Cosine"),
     (5, 2, 1024, 128, 37, 2000, "IP"),
+]
+# (B, N, dim, count, tile_n, group_n, c, k) — small odd shapes of every
+# kernel and lane: B = 1, 7, 130; counts off the tile grid; dims off the
+# 4- and 16-element vector loads; k above count; a tile below 128 rows.
+LANE_SHAPES = [
+    (1, 4096, 37, 3001, 1024, 256, 32, 100),
+    (7, 2048, 40, 50, 512, 128, 16, 64),
+    (130, 3072, 64, 3000, 64, 16, 64, 128),
 ]
 
 
@@ -91,29 +132,77 @@ def gm_error(got, ref):
     return float(diff.max()), float((diff / ref.abs().clamp(min=1.0)).max())
 
 
+def lists_error(got, ref, tol):
+    """Max |distance difference| of two sets of sorted (distance, id) lists
+    [R, m]. Unfilled slots (+inf, -1) must coincide; with ``tol`` = 0
+    everything must be equal, else distances within ``tol`` and ids equal
+    except at slots whose reference distance lies within ``tol`` of a
+    neighbouring slot's."""
+    (d, i), (rd, ri) = got, ref
+    i, ri = i.to(torch.int64), ri.to(torch.int64)
+    fin = torch.isfinite(rd)
+    if not torch.equal(torch.isfinite(d), fin) or not bool((i[~fin] == -1).all()):
+        raise AssertionError("kernel and plain version disagree on unfilled slots")
+    err = float(torch.where(fin, d - rd, 0.0).abs().max()) if d.numel() else 0.0
+    if tol == 0:
+        if not (torch.equal(d, rd) and torch.equal(i, ri)):
+            raise AssertionError(f"an exact lane differs from its plain version (err {err:.3e})")
+        return err
+    if not err <= tol:
+        raise AssertionError(f"kernel disagrees with its plain version: {err:.3e}")
+    gap = torch.diff(torch.where(fin, rd, 0.0).double(), dim=1).abs() <= tol
+    tied = torch.zeros_like(fin)
+    tied[:, 1:] |= gap
+    tied[:, :-1] |= gap
+    bad = (i != ri) & ~tied
+    if bool(bad.any()):
+        raise AssertionError(f"{int(bad.sum())} ids differ from the plain version's")
+    return err
+
+
+def lane_tol(lane, metric_name):
+    if lane in ("s8", "u8"):
+        return INT_COS_TOL if metric_name == "Cosine" else 0.0
+    return TOL
+
+
 def phase_build():
     from vectorsimilarity_tpu_torch.ops.kernels import bf_topk as bfk
 
     t0 = time.perf_counter()
     kern = bfk.load_kernel()
-    print(f"# build: {time.perf_counter() - t0:.1f} s (nvcc {kern.build_seconds:.1f} s) "
-          f"-> {os.path.relpath(kern.path, REPO)}", flush=True)
-    for line in kern.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"#   ptxas: {line.strip()}")
+    print(f"# build: {time.perf_counter() - t0:.1f} s (nvcc, {len(kern.paths)} sources in "
+          f"parallel: {kern.build_seconds:.1f} s) -> "
+          f"{os.path.relpath(os.path.dirname(next(iter(kern.paths.values()))), REPO)}", flush=True)
+    for src, log in kern.build_logs.items():
+        if not log:
+            print(f"#   ptxas {src}: built earlier in this checkout")
+        entry = None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                lane = re.search(r"Lane(\w+?)ELb([01])", m.group(1))
+                entry = f"{lane.group(1)} vec={lane.group(2)}" if lane else m.group(1)
+                spills = ""
+            elif "spill" in line:
+                spills = line.strip()
+            elif "Used" in line and entry is not None:
+                used = re.search(r"Used (\d+) registers", line)
+                print(f"#   ptxas {src} {entry}: {used.group(1)} registers, {spills}")
+                entry = None
 
 
-def check_kernel(dev, shapes, store=None):
-    """Kernel vs plain version on each shape; returns (max abs error over
-    all shapes, last shape's kernel ms, last shape's plain ms)."""
+def check_kernel(dev, shapes):
+    """The group-min kernel's fp32 lane vs its plain version on each shape;
+    returns the max abs error over all shapes."""
     from vectorsimilarity_tpu_torch.ops.kernels import bf_topk as bfk
     from vectorsimilarity_tpu_torch.types import VecSimMetric
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    worst, ms, plain_ms = 0.0, None, None
+    worst = 0.0
     for B, tiles, tile_n, group_n, dim, count, mname in shapes:
         metric = VecSimMetric[mname]
-        data = store if store is not None else _unit_rows(gen, tiles * tile_n, dim, dev)
+        data = _unit_rows(gen, tiles * tile_n, dim, dev)
         q = _unit_rows(gen, B, dim, dev)
         sqn = torch.sum(data * data, dim=1) if metric == VecSimMetric.L2 else None
         kw = dict(metric=metric, tile_n=tile_n, group_n=group_n)
@@ -121,25 +210,97 @@ def check_kernel(dev, shapes, store=None):
         ref = bfk.group_min_scores_ref(q, data, sqn, count, **kw)
         torch.cuda.synchronize()
         err, rel = gm_error(got, ref)
-        reps = 5 if B * data.shape[0] > 1 << 28 else 20
-        ms = time_ms(lambda: bfk.group_min_scores(q, data, sqn, count, **kw), reps)
-        plain_ms = time_ms(lambda: bfk.group_min_scores_ref(q, data, sqn, count, **kw), reps)
-        print(f"# kernel vs plain B={B} N={data.shape[0]} D={dim} count={count} "
-              f"tile_n={tile_n} G={group_n} {mname}: max abs err {err:.3e} (rel {rel:.3e}), "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+        print(f"# gm f32 vs plain B={B} N={data.shape[0]} D={dim} count={count} "
+              f"tile_n={tile_n} G={group_n} {mname}: max abs err {err:.3e} (rel {rel:.3e})",
+              flush=True)
         if not err <= TOL:
             raise AssertionError(f"kernel disagrees with its plain version: {err:.3e}")
         worst = max(worst, err)
-    return worst, ms, plain_ms
+    return worst
 
 
-def exact_truth(queries, store, count, k):
-    """float64 exact cosine distances and ids (lex order) of the k best."""
+def one_query(store, queries, smi):
+    """The group-min kernel's fp32 lane at the headline store with B = 1 (a
+    block of 128 queries holds one): error vs plain, and both times."""
+    from vectorsimilarity_tpu_torch.ops.kernels import bf_topk as bfk
+    from vectorsimilarity_tpu_torch.types import VecSimMetric
+
+    q = queries[:1].contiguous()
+    kw = dict(metric=VecSimMetric.Cosine, tile_n=TILE_N, group_n=GROUP_N)
+    err, _ = gm_error(bfk.group_min_scores(q, store, None, N, **kw),
+                      bfk.group_min_scores_ref(q, store, None, N, **kw))
+    ms = time_ms(lambda: bfk.group_min_scores(q, store, None, N, **kw), 5)
+    plain_ms = time_ms(lambda: bfk.group_min_scores_ref(q, store, None, N, **kw), 5)
+    print(f"# bf_topk_gm_f32 vs plain at {N} x {DIM}, B=1: max abs err {err:.3e}, kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms; card {smi}", flush=True)
+    if not err <= TOL:
+        raise AssertionError(f"kernel disagrees with its plain version: {err:.3e}")
+    return err
+
+
+def lane_case(dev, gen, lane, mname, B, n, dim):
+    """(q, x, aux, query_norms) of one lane and metric, made on the card."""
+    if lane in ("s8", "u8"):
+        lo, hi = (-128, 128) if lane == "s8" else (0, 256)
+        x = torch.randint(lo, hi, (n, dim), generator=gen, device=dev).to(DTYPES[lane])
+        q = torch.randint(lo, hi, (B, dim), generator=gen, device=dev).to(DTYPES[lane])
+        if mname != "Cosine":
+            return q, x, None, None
+        norm = lambda t: t.double().square().sum(1).float().sqrt().clamp(min=1.0)
+        return q, x, norm(x), norm(q)
+    x = _unit_rows(gen, n, dim, dev).to(DTYPES[lane])
+    q = _unit_rows(gen, B, dim, dev).to(DTYPES[lane])
+    return q, x, (x.float().square().sum(1) if mname == "L2" else None), None
+
+
+def check_lanes(dev):
+    """Every kernel and lane vs its plain version at LANE_SHAPES, all three
+    metrics. Returns {(kernel, lane): max abs error}."""
+    from vectorsimilarity_tpu_torch.ops.kernels import bf_topk as bfk
+    from vectorsimilarity_tpu_torch.types import VecSimMetric
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    worst = {(k, lane): 0.0 for k in KERNELS for lane in LANES}
+    for lane in LANES:
+        for mname in ("L2", "IP", "Cosine"):
+            tol = lane_tol(lane, mname)
+            for B, n, dim, count, tile_n, group_n, c, k in LANE_SHAPES:
+                q, x, aux, qn = lane_case(dev, gen, lane, mname, B, n, dim)
+                kw = dict(metric=VecSimMetric[mname], query_norms=qn)
+                got = bfk.group_min_scores(q, x, aux, count, tile_n=tile_n, group_n=group_n, **kw)
+                ref = bfk.group_min_scores_ref(q, x, aux, count, tile_n=tile_n, group_n=group_n,
+                                               **kw)
+                err, _ = gm_error(got, ref)
+                if not err <= tol:
+                    raise AssertionError(f"gm {lane} {mname} B={B}: err {err:.3e} > {tol}")
+                worst["gm", lane] = max(worst["gm", lane], err)
+                got = bfk.fused_topk(q, x, aux, count, k, **kw)
+                ref = bfk.fused_topk_ref(q, x, aux, count, k, **kw)
+                worst["fused", lane] = max(worst["fused", lane], lists_error(got, ref, tol))
+                got = bfk.tile_topc(q, x, aux, count, tile_n=tile_n, c=c, **kw)
+                ref = bfk.tile_topc_ref(q, x, aux, count, tile_n=tile_n, c=c, **kw)
+                flat = lambda pair: tuple(t.reshape(-1, c) for t in pair)
+                worst["topc", lane] = max(worst["topc", lane],
+                                          lists_error(flat(got), flat(ref), tol))
+        torch.cuda.synchronize()
+        print(f"# {lane}: gm, fused, topc vs plain at {len(LANE_SHAPES)} odd shapes x 3 metrics: "
+              f"max abs err {worst['gm', lane]:.3e}, {worst['fused', lane]:.3e}, "
+              f"{worst['topc', lane]:.3e}", flush=True)
+    return worst
+
+
+def exact_truth(queries, store, count, k, norms=None, qnorms=None):
+    """float64 exact cosine distances and ids (lex order) of the k best, and
+    the whole [Q, count] distance matrix. Integer stores: the dot is exact in
+    float64 and is divided by the float64 product of the two norms."""
     q64 = queries.double()
     parts = []
     for lo in range(0, count, 1 << 17):
         hi = min(lo + (1 << 17), count)
-        parts.append(1.0 - q64 @ store[lo:hi].double().T)
+        ip = q64 @ store[lo:hi].double().T
+        if norms is not None:
+            ip = ip / (qnorms.double()[:, None] * norms[lo:hi].double()[None, :])
+        parts.append(1.0 - ip)
     s = torch.cat(parts, dim=1)
     order = torch.sort(s, dim=1, stable=True).indices[:, :k]
     return torch.gather(s, 1, order).cpu().numpy(), order.cpu().numpy(), s
@@ -167,14 +328,179 @@ def assert_knn(d, i, rd, ri, s64):
         raise AssertionError("duplicate ids in a reply")
 
 
+def bound_ms(lane, out_bytes, aux_bytes=0):
+    """(least ms the card could take, what bounds it) for scoring BATCH
+    queries against the N live rows in ``lane``: the larger of the bytes
+    moved once (queries, live rows, auxiliaries in; the result out) over the
+    memory rate and 2 B N D operations over the lane's peak rate."""
+    esize = torch.empty((), dtype=DTYPES[lane]).element_size()
+    byte_ms = 1e3 * ((BATCH + N) * DIM * esize + aux_bytes + out_bytes) / PEAK_BYTES
+    op_ms = 1e3 * 2.0 * BATCH * N * DIM / PEAK_OPS[lane]
+    return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
+
+
+def full_width(lane, store, norms, raw_queries, smi, small_err):
+    """Phase 5 for one store type; ``raw_queries`` [BATCH, DIM] go through the
+    index's own preprocessing for the host API and the device path alike.
+    Returns the three kernels' result rows."""
+    from vectorsimilarity_tpu_torch.indexes.brute_force import BruteForceIndex
+    from vectorsimilarity_tpu_torch.ops.kernels import bf_topk as bfk
+    from vectorsimilarity_tpu_torch.types import BFParams, VecSimMetric, VecSimType
+
+    metric = VecSimMetric.Cosine
+    idx = BruteForceIndex(BFParams(type=VecSimType[VTYPES[lane]], dim=DIM, metric=metric))
+    if idx.store.device.type != "cuda":
+        raise AssertionError("an index built with no device is not on the card")
+    arrays = {"data": store} if norms is None else {"data": store, "norm": norms}
+    idx.store.adopt_device(arrays, count=N)
+    idx.labels.label_to_id = dict(zip(range(N), range(N)))
+    idx.store.host["label"][:N] = np.arange(N, dtype=np.int64)
+    raw = raw_queries.float().cpu().numpy().astype(idx.np_dtype)
+    host_queries = raw[:64]
+    queries, qnorms = (idx.to_device(a) for a in idx.preprocess_queries(raw))
+    wrappers = {"gm": bfk.group_min_scores, "fused": bfk.fused_topk, "topc": bfk.tile_topc}
+    engine_of = dict(zip(KS, ("gm", "fused", "topc")))
+
+    # The main path, counts at 0 just before and read just after.
+    for w in wrappers.values():
+        w.launches = 0
+    bfk.topk_gm_exact.fallbacks = bfk.topk_bigk_exact.fallbacks = 0
+    out = {}
+    for k in KS:
+        out[k] = (idx.topk_query_batch(host_queries, k), idx.search_knn_device(queries, k,
+                                                                               qn=qnorms))
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    fallbacks = {"gm": bfk.topk_gm_exact.fallbacks, "fused": 0,
+                 "topc": bfk.topk_bigk_exact.fallbacks}
+    print(f"# main path {lane}: launches {launches}, fallbacks {fallbacks}", flush=True)
+    if any(n < 2 for n in launches.values()):
+        raise AssertionError("an engine of the main path did not launch its kernel")
+    if any(fallbacks.values()):
+        raise AssertionError("an exact fallback ran on random data")
+
+    rd, ri, s64 = exact_truth(queries[:32], store, N, max(KS) + 1, norms,
+                              None if qnorms is None else qnorms[:32])
+    for k in KS:
+        replies, (dists, ids) = out[k]
+        if tuple(dists.shape) != (BATCH, k) or not bool(torch.isfinite(dists).all()):
+            raise AssertionError(f"bad result shape or values: {tuple(dists.shape)}")
+        assert_knn(dists[:32].cpu().numpy(), ids[:32].cpu().numpy(), rd[:, :k + 1], ri, s64)
+        hd = np.stack([r.scores for r in replies[:32]])
+        hi = np.stack([r.ids for r in replies[:32]])  # labels == row ids here
+        assert_knn(hd, hi, rd[:, :k + 1], ri, s64)
+    del s64, out
+    print(f"# main path {lane}: 32 queries match the float64 exact top-k at k = {KS} "
+          f"(host API and device path), tolerance {TOL}", flush=True)
+
+    # Each kernel against its plain version at the main path's shape, timed.
+    tol = lane_tol(lane, "Cosine")
+    kw = dict(metric=metric, query_norms=qnorms)
+    gm_kw = dict(tile_n=TILE_N, group_n=GROUP_N, **kw)
+    topc_kw = dict(tile_n=TILE_N, c=LOCAL_C, **kw)
+    flat = lambda pair: tuple(t.reshape(-1, LOCAL_C) for t in pair)
+    calls = {
+        "gm": (lambda: bfk.group_min_scores(queries, store, norms, N, **gm_kw),
+               lambda: bfk.group_min_scores_ref(queries, store, norms, N, **gm_kw),
+               lambda got, ref: gm_error(got, ref)[0]),
+        "fused": (lambda: bfk.fused_topk(queries, store, norms, N, KS[1], **kw),
+                  lambda: bfk.fused_topk_ref(queries, store, norms, N, KS[1], **kw),
+                  lambda got, ref: lists_error(got, ref, tol)),
+        "topc": (lambda: bfk.tile_topc(queries, store, norms, N, **topc_kw),
+                 lambda: bfk.tile_topc_ref(queries, store, norms, N, **topc_kw),
+                 lambda got, ref: lists_error(flat(got), flat(ref), tol)),
+    }
+    out_bytes = {"gm": BATCH * (CAP // TILE_N) * GROUP_N * 4, "fused": BATCH * KS[1] * 8,
+                 "topc": BATCH * (CAP // TILE_N) * LOCAL_C * 8}
+    aux_bytes = 0 if norms is None else (N + BATCH) * 4
+    rows = []
+    for name, (kernel, plain, compare) in calls.items():
+        err = compare(kernel(), plain())
+        if not err <= tol:
+            raise AssertionError(f"{name} {lane}: kernel disagrees with plain: {err:.3e}")
+        ms, plain_ms = time_ms(kernel, 3), time_ms(plain, 2)
+        least, by = bound_ms(lane, out_bytes[name], aux_bytes)
+        print(f"# {KERNELS[name][0]}_{lane} vs plain at {N} x {DIM}, B={BATCH}: max abs err "
+              f"{err:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {least:.3f} ms "
+              f"({by}); card {smi}", flush=True)
+        rows.append({
+            "name": f"{KERNELS[name][0]}_{lane}", "route": "cuda", "source": KERNELS[name][1],
+            "replaces": KERNELS[name][2], "launches": launches[name],
+            "max_abs_err": max(err, small_err[name, lane]), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": least, "bound_by": by, "library_ms": None,
+            "fallbacks": fallbacks[name],
+        })
+
+    # QPS of the device path, one engine per k.
+    staged = [queries, queries.flip(0).contiguous()]
+    staged_qn = [qnorms, None if qnorms is None else qnorms.flip(0).contiguous()]
+    for k, row in zip(KS, rows):
+        rounds = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for qb, qn in zip(staged, staged_qn):
+                idx.search_knn_device(qb, k, qn=qn)
+            torch.cuda.synchronize()
+            rounds.append(len(staged) * BATCH / (time.perf_counter() - t0))
+        row["qps"] = statistics.median(rounds)
+        print(f"# search_knn_device {N} x {DIM} {lane} cosine, B={BATCH}, k={k} "
+              f"({engine_of[k]}): {row['qps']:.1f} QPS (median of "
+              f"{[round(r, 1) for r in rounds]}), {1000 * BATCH / row['qps']:.2f} ms per batch; "
+              f"card {smi}", flush=True)
+    return rows
+
+
+def phase_fallbacks(dev):
+    """Both exact fallbacks, tripped on purpose."""
+    from vectorsimilarity_tpu_torch import config
+    from vectorsimilarity_tpu_torch.indexes.brute_force import BruteForceIndex
+    from vectorsimilarity_tpu_torch.ops.kernels import bf_topk as bfk
+    from vectorsimilarity_tpu_torch.types import BFParams, VecSimMetric, VecSimType
+
+    # All-ties store: every group minimum ties, coverage cannot be shown,
+    # the exact fallback must answer with ids 0..k-1.
+    params = BFParams(type=VecSimType.FLOAT32, dim=DIM, metric=VecSimMetric.Cosine)
+    ties = BruteForceIndex(params, device=dev)
+    row = torch.full((1, DIM), DIM ** -0.5, device=dev)
+    ties.store.adopt_device({"data": row.repeat(8192, 1)}, count=5000)
+    before = bfk.topk_gm_exact.fallbacks
+    td, ti = ties.search_knn_device(row.repeat(4, 1), KS[0])
+    if bfk.topk_gm_exact.fallbacks != before + 1:
+        raise AssertionError("the all-ties case did not fall back")
+    if not (ti.cpu() == torch.arange(KS[0])).all() or float(td.abs().max()) > 1e-6:
+        raise AssertionError(f"all-ties fallback returned {ti[0].tolist()}")
+    print("# all-ties store: group-min fallback ran and returned ids 0..k-1", flush=True)
+
+    # The 200 rows nearest to the query all sit in tile 0 of 64: that tile's
+    # 32nd best lies inside the global top-160, the truncation flag fires, and
+    # the streaming scan must answer with exactly those rows.
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    x = _unit_rows(gen, 64 * TILE_N, DIM, dev)
+    q = _unit_rows(gen, 4, DIM, dev)
+    x[:200] = torch.nn.functional.normalize(
+        q[0] + 0.02 * torch.randn((200, DIM), generator=gen, device=dev), dim=1)
+    near = BruteForceIndex(params, device=dev)
+    near.store.adopt_device({"data": x}, count=64 * TILE_N - 77)
+    k = 160
+    if not config.bigk_enabled("float", 256, 64 * TILE_N, torch.float32):
+        raise AssertionError("the truncation case is gated off the top-c engine")
+    before, launched = bfk.topk_bigk_exact.fallbacks, bfk.tile_topc.launches
+    d, i = near.search_knn_device(q, k)
+    if bfk.tile_topc.launches != launched + 1 or bfk.topk_bigk_exact.fallbacks != before + 1:
+        raise AssertionError("the one-tile case did not trip the truncation fallback")
+    rd, ri, s64 = exact_truth(q, x, 64 * TILE_N - 77, k + 1)
+    assert_knn(d.cpu().numpy(), i.cpu().numpy(), rd, ri, s64)
+    if set(i[0].tolist()) - set(range(200)):
+        raise AssertionError("the truncation fallback missed planted rows")
+    print(f"# one-tile store: top-c truncation flag fired at k={k}, the fallback matches the "
+          "float64 exact top-k", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from vectorsimilarity_tpu_torch.indexes.brute_force import BruteForceIndex
-    from vectorsimilarity_tpu_torch.ops.kernels import bf_topk as bfk
-    from vectorsimilarity_tpu_torch.types import BFParams, VecSimMetric, VecSimType
     from vectorsimilarity_tpu_torch.utils.synthetic import embedding_like
 
     dev = torch.device("cuda:0")
@@ -184,6 +510,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"# {torch.cuda.get_device_name(0)} ({smi}); torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
+    t_start = time.perf_counter()
 
     # 1. Build.
     phase_build()
@@ -194,91 +521,47 @@ def main() -> int:
     store = torch.zeros((CAP, DIM), dtype=torch.float32, device=dev)
     embedding_like(gen, N, DIM, out=store)
     qgen = torch.Generator(device=dev).manual_seed(SEED + 100)
-    staged = [embedding_like(gen, BATCH, DIM, latent_generator=qgen) for _ in range(4)]
+    queries = embedding_like(gen, BATCH, DIM, latent_generator=qgen)
     torch.cuda.synchronize()
     print(f"# store {N} x {DIM} fp32 cosine generated in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 3. Kernel vs plain version: small odd shapes, then the headline.
-    small_err, _, _ = check_kernel(dev, SMALL_SHAPES)
-    err, ms, plain_ms = check_kernel(
-        dev, [(B, CAP // 4096, 4096, 256, DIM, N, "Cosine") for B in (1, BATCH)], store=store)
-    err = max(err, small_err)
+    # 3, 4. Kernels vs plain versions at small odd shapes.
+    gm_small = check_kernel(dev, SMALL_SHAPES)
+    small_err = check_lanes(dev)
+    small_err["gm", "f32"] = max(small_err["gm", "f32"], gm_small, one_query(store, queries, smi))
 
-    # 4. The main path at full width.
-    idx = BruteForceIndex(BFParams(type=VecSimType.FLOAT32, dim=DIM,
-                                   metric=VecSimMetric.Cosine), device=dev)
-    idx.store.adopt_device({"data": store}, count=N)
-    idx.labels.label_to_id = dict(zip(range(N), range(N)))
-    idx.store.host["label"][:N] = np.arange(N, dtype=np.int64)
-    host_queries = staged[0][:64].cpu().numpy()
-
-    bfk.group_min_scores.launches = 0
-    bfk.topk_gm_exact.fallbacks = 0
-    replies = idx.topk_query_batch(host_queries, K)
-    dists, ids = idx.search_knn_device(staged[0], K)
-    torch.cuda.synchronize()
-    launches, fallbacks = bfk.group_min_scores.launches, bfk.topk_gm_exact.fallbacks
-    print(f"# main path: kernel launches {launches}, fallbacks {fallbacks}", flush=True)
-    if launches < 2:
-        raise AssertionError("the main path did not run the group-min kernel")
-    if fallbacks:
-        raise AssertionError("the exact fallback ran on random data")
-    if tuple(dists.shape) != (BATCH, K) or not bool(torch.isfinite(dists).all()):
-        raise AssertionError(f"bad result shape or values: {tuple(dists.shape)}")
-
-    rd, ri, s64 = exact_truth(staged[0][:32], store, N, K + 1)
-    assert_knn(dists[:32].cpu().numpy(), ids[:32].cpu().numpy(), rd, ri, s64)
-    hd = np.stack([r.scores for r in replies[:32]])
-    hi = np.stack([r.ids for r in replies[:32]])  # labels == row ids here
-    assert_knn(hd, hi, rd, ri, s64)
-    del s64
-    print("# main path: 32 queries match the float64 exact top-k "
-          f"(host API and device path), tolerance {TOL}", flush=True)
-
-    # All-ties store: every group minimum ties, coverage cannot be shown,
-    # the exact fallback must answer with ids 0..k-1.
-    ties = BruteForceIndex(BFParams(type=VecSimType.FLOAT32, dim=DIM,
-                                    metric=VecSimMetric.Cosine), device=dev)
-    row = torch.full((1, DIM), DIM ** -0.5, device=dev)
-    ties.store.adopt_device({"data": row.repeat(8192, 1)}, count=5000)
-    before = bfk.topk_gm_exact.fallbacks
-    td, ti = ties.search_knn_device(row.repeat(4, 1), K)
-    if bfk.topk_gm_exact.fallbacks != before + 1:
-        raise AssertionError("the all-ties case did not fall back")
-    if not (ti.cpu() == torch.arange(K)).all() or float(td.abs().max()) > 1e-6:
-        raise AssertionError(f"all-ties fallback returned {ti[0].tolist()}")
-    print("# all-ties store: fallback ran and returned ids 0..k-1", flush=True)
-
-    # 5. QPS at the headline shape.
-    idx.search_knn_device(staged[1], K)
-    torch.cuda.synchronize()
-    rounds = []
-    for _ in range(3):
+    # 5. The main path at full width, one store type after another. The
+    # integer stores hold the fp32 rows scaled to the int8 range (uint8:
+    # shifted by 128), their queries likewise, with the stored fp32 norms the
+    # index keeps for Cosine.
+    scale = 127.0 / float(store.abs().max())
+    quantize = lambda t, shift: (t * scale).round().clamp(-127, 127).add(shift)
+    int_norms = lambda t: torch.cat([c.double().square().sum(1).float().sqrt().clamp(min=1.0)
+                                     for c in t.split(1 << 17)])
+    rows = []
+    for lane in LANES:
         t0 = time.perf_counter()
-        for qb in staged:
-            out = idx.search_knn_device(qb, K)
-        torch.cuda.synchronize()
-        rounds.append(len(staged) * BATCH / (time.perf_counter() - t0))
-    qps = statistics.median(rounds)
-    print(f"# search_knn_device {N} x {DIM} fp32 cosine, B={BATCH}, k={K}: "
-          f"{qps:.1f} QPS (median of {[round(r, 1) for r in rounds]}), "
-          f"{1000 * BATCH / qps:.2f} ms per batch; card {smi}", flush=True)
-    del out
+        if lane in ("s8", "u8"):
+            shift = 0 if lane == "s8" else 128
+            data = torch.cat([quantize(c, shift).to(DTYPES[lane]) for c in store.split(1 << 17)])
+            q = quantize(queries, shift)
+            norms = int_norms(data)
+        else:
+            data, q, norms = store.to(DTYPES[lane]), queries, None
+        if lane == LANES[-1]:
+            del store  # every later store is made; free the fp32 one
+        rows += full_width(lane, data, norms, q, smi, small_err)
+        del data, q, norms
+        torch.cuda.empty_cache()
+        print(f"# {lane} store done in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 6. The exact fallbacks.
+    phase_fallbacks(dev)
+
+    print(f"# all phases passed in {time.perf_counter() - t_start:.1f} s; card {smi}")
     print(smi)
-    print(json.dumps({"kernels": [{
-        "name": "bf_topk_gm_f32",
-        "route": "cuda",
-        "source": "vectorsimilarity_tpu_torch/csrc/bf_topk_gm.cu",
-        "replaces": "vectorsimilarity_tpu/ops/pallas/bf_topk.py:509",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "fallbacks": fallbacks,
-        "qps": qps,
-    }]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

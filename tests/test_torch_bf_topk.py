@@ -118,8 +118,8 @@ def test_gm_exact_matches_pallas_gm_exact(case):
                                   metric=JM.Cosine, kind="float", tile_n=tile_n, group_n=G,
                                   interpret=True)
     before = bfk.topk_gm_exact.fallbacks
-    d, i = bfk.topk_gm_exact(T(q), T(x), None, n, k, metric=TM.Cosine, tile_n=tile_n,
-                             group_n=G)
+    d, i = bfk.topk_gm_exact(T(q), T(x), None, n, k, metric=TM.Cosine, kind="float",
+                             tile_n=tile_n, group_n=G)
     assert bfk.topk_gm_exact.fallbacks == before + (case == "all_ties")
     assert_topk_parity(d, i, rd, ri)
     if case == "all_ties":
@@ -134,7 +134,7 @@ def test_kernel_wrapper_rejects_what_it_cannot_launch():
     before = bfk.group_min_scores.launches
     # The launcher takes CUDA tensors only: no plain path behind it.
     with pytest.raises(ValueError, match="CUDA"):
-        bfk._launch(q, x, None, 128, TM.IP, TILE, G)
+        bfk._run(bfk.group_min_scores, "bf_topk_gm", x, lambda kern, stream: 0)
     # A device that is neither the CPU nor CUDA reaches the launcher and raises.
     with pytest.raises(ValueError, match="CUDA"):
         bfk.group_min_scores(q.to("meta"), x.to("meta"), None, 128, **kw)

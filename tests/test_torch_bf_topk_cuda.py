@@ -1,5 +1,6 @@
-"""The group-min kernel on the card: against its plain version, and the flat
-index on a CUDA store against the same index on the CPU.
+"""The flat index's kernels on the card: each kernel and scoring lane against
+its plain version, and the flat index on a CUDA store against the same index
+on the CPU for each store type and k band.
 
 Every test here needs an NVIDIA card and skips elsewhere. The file imports
 no JAX, so it also runs where JAX is not installed:
@@ -7,15 +8,17 @@ no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_bf_topk_cuda.py -q
 
 (``--noconftest``: ``tests/conftest.py`` sets up JAX for the other files.)
-The kernel and its plain version both compute in IEEE fp32, in different
-summation orders: group minima agree within 1e-5.
+Float lanes: kernel and plain version both sum in fp32, in different orders,
+so distances agree within 1e-5 and ids except at near-ties. Integer lanes are
+exact on both sides: L2 and IP must be equal; Cosine rounds one fp32 divide
+and is held to 1e-6.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from torch_port_common import TOL, assert_replies_parity, unit_rows
+from torch_port_common import TOL, assert_replies_parity, assert_topk_parity, unit_rows
 from vectorsimilarity_tpu_torch import config
 from vectorsimilarity_tpu_torch.indexes.brute_force import BruteForceIndex
 from vectorsimilarity_tpu_torch.ops.kernels import bf_topk as bfk
@@ -23,54 +26,199 @@ from vectorsimilarity_tpu_torch.types import BFParams, VecSimMetric, VecSimType
 
 pytestmark = pytest.mark.cuda
 
+LANES = ["f32", "bf16", "f16", "s8", "u8"]
+METRICS = ["L2", "IP", "Cosine"]
+_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16,
+           "s8": torch.int8, "u8": torch.uint8}
+_VTYPES = {"f32": VecSimType.FLOAT32, "bf16": VecSimType.BFLOAT16, "f16": VecSimType.FLOAT16,
+           "s8": VecSimType.INT8, "u8": VecSimType.UINT8}
+
 
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     return torch.device("cuda:0")
 
 
-# (B, N, D, tile_n, G, count): odd batches, counts off the tile grid, a dim
-# that is not a multiple of 4 (the kernel's scalar load path), G below and
-# above the kernel's 128-column block.
-SHAPES = [(37, 1024, 40, 128, 16, 1000), (1, 4096, 37, 1024, 256, 3001),
-          (130, 2048, 64, 512, 128, 2048)]
+def _rows(rng, n, d, lane, small=False):
+    """numpy rows of a lane: unit vectors, or integers (``small``: values
+    0..2, so that distances tie)."""
+    if lane == "s8":
+        return rng.integers(0 if small else -128, 3 if small else 128, size=(n, d)).astype(np.int8)
+    if lane == "u8":
+        return rng.integers(0, 3 if small else 256, size=(n, d)).astype(np.uint8)
+    return unit_rows(rng, n, d)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("metric", ["L2", "IP", "Cosine"])
-def test_kernel_matches_plain(card, metric, shape):
+def _case(card, lane, metric, B, N, D, seed, small=False):
+    """(q, x, aux, query_norms, metric) on the card for one lane and metric."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(_rows(rng, N, D, lane, small)).to(card, _DTYPES[lane])
+    q = torch.from_numpy(_rows(rng, B, D, lane, small)).to(card, _DTYPES[lane])
+    aux = qn = None
+    if lane in ("s8", "u8"):
+        if metric == "Cosine":
+            aux = x.double().square().sum(1).float().sqrt().clamp(min=1.0)
+            qn = q.double().square().sum(1).float().sqrt().clamp(min=1.0)
+    elif metric == "L2":
+        aux = x.float().square().sum(1)
+    return q, x, aux, qn, VecSimMetric[metric]
+
+
+def _assert_lists(lane, metric, got, ref):
+    """Sorted (distance, id) lists [B, m] of a kernel against its plain
+    version."""
+    (d, i), (rd, ri) = got, ref
+    if lane in ("s8", "u8") and metric != "Cosine":
+        assert torch.equal(d, rd) and torch.equal(i, ri)
+    else:
+        assert_topk_parity(d, i, rd, ri, 1e-6 if lane in ("s8", "u8") else TOL)
+
+
+# Few test items on purpose: each loops over lanes, metrics and shapes itself
+# and names the failing case in its assertion message.
+#
+# Group minima (B, N, D, tile_n, G, count): odd batches, counts off the tile
+# grid, dims that are not a multiple of 4 or 16 (the scalar load paths), G
+# below and above the kernel's 128-column block.
+GM_SHAPES = [(37, 1024, 40, 128, 16, 1000), (1, 4096, 37, 1024, 256, 3001),
+             (130, 2048, 64, 512, 128, 2048)]
+# Per-tile top-c (B, N, D, tile_n, c, count): a tile shorter than the kernel's
+# 128-row sub-tile, count inside a tile, count below one tile, c = tile_n.
+TOPC_SHAPES = [(37, 1024, 40, 64, 16, 1000), (1, 4096, 37, 1024, 32, 3001),
+               (130, 2048, 64, 512, 128, 300), (7, 512, 48, 128, 128, 512)]
+# Fused top-k (B, N, D, count, k): N off the 128-row grid, k > count, k = 128.
+FUSED_SHAPES = [(37, 3000, 40, 2500, 100), (7, 2048, 37, 50, 64), (130, 5000, 64, 5000, 128),
+                (1, 70000, 48, 69999, 33)]
+
+
+def _gm_case(card, lane, metric, shape):
     B, N, D, tile_n, G, count = shape
-    gen = torch.Generator(device=card).manual_seed(B + D)
-    x = torch.nn.functional.normalize(torch.randn((N, D), generator=gen, device=card), dim=1)
-    q = torch.nn.functional.normalize(torch.randn((B, D), generator=gen, device=card), dim=1)
-    sqn = (x * x).sum(1) if metric == "L2" else None
-    kw = dict(metric=VecSimMetric[metric], tile_n=tile_n, group_n=G)
-    before = bfk.group_min_scores.launches
-    got = bfk.group_min_scores(q, x, sqn, count, **kw)
-    ref = bfk.group_min_scores_ref(q, x, sqn, count, **kw)
-    torch.cuda.synchronize()
-    assert bfk.group_min_scores.launches == before + 1
+    q, x, aux, qn, m = _case(card, lane, metric, B, N, D, seed=B + D)
+    kw = dict(metric=m, tile_n=tile_n, group_n=G, query_norms=qn)
+    got = bfk.group_min_scores(q, x, aux, count, **kw)
+    ref = bfk.group_min_scores_ref(q, x, aux, count, **kw)
     assert got.shape == ref.shape == (B, (N // tile_n) * G)
     assert torch.equal(torch.isinf(got), torch.isinf(ref))
     fin = torch.isfinite(ref)
-    assert float((got[fin] - ref[fin]).abs().max()) <= TOL
+    if lane in ("s8", "u8") and metric != "Cosine":
+        assert torch.equal(got[fin], ref[fin])
+    else:
+        assert float((got[fin] - ref[fin]).abs().max()) <= (1e-6 if lane in ("s8", "u8") else TOL)
 
 
-@pytest.mark.parametrize("metric", ["L2", "IP", "Cosine"])
-def test_index_on_card_matches_index_on_cpu(card, metric, monkeypatch):
+def _topc_case(card, lane, metric, shape):
+    B, N, D, tile_n, c, count = shape
+    q, x, aux, qn, m = _case(card, lane, metric, B, N, D, seed=B + D + 1)
+    kw = dict(metric=m, tile_n=tile_n, c=c, query_norms=qn)
+    d, i = bfk.tile_topc(q, x, aux, count, **kw)
+    rd, ri = bfk.tile_topc_ref(q, x, aux, count, **kw)
+    assert d.shape == i.shape == (B, N // tile_n, c) and i.dtype == torch.int32
+    _assert_lists(lane, metric, (d.reshape(-1, c), i.reshape(-1, c)),
+                  (rd.reshape(-1, c), ri.reshape(-1, c)))
+
+
+def _fused_case(card, lane, metric, shape):
+    B, N, D, count, k = shape
+    q, x, aux, qn, m = _case(card, lane, metric, B, N, D, seed=B + D + 2)
+    kw = dict(metric=m, query_norms=qn)
+    got = bfk.fused_topk(q, x, aux, count, k, **kw)
+    ref = bfk.fused_topk_ref(q, x, aux, count, k, **kw)
+    assert got[0].shape == (B, k) and got[1].dtype == torch.int32
+    _assert_lists(lane, metric, got, ref)
+
+
+@pytest.mark.parametrize("kernel", ["gm", "fused", "topc"])
+def test_kernel_matches_plain(card, kernel):
+    wrapper, case, shapes = {
+        "gm": (bfk.group_min_scores, _gm_case, GM_SHAPES),
+        "fused": (bfk.fused_topk, _fused_case, FUSED_SHAPES),
+        "topc": (bfk.tile_topc, _topc_case, TOPC_SHAPES),
+    }[kernel]
+    for lane in LANES:
+        for metric in METRICS:
+            for shape in shapes:
+                before = wrapper.launches
+                try:
+                    case(card, lane, metric, shape)
+                    torch.cuda.synchronize()
+                except AssertionError as err:
+                    raise AssertionError(f"{kernel} {lane} {metric} {shape}: {err}") from err
+                assert wrapper.launches == before + 1
+
+
+@pytest.mark.parametrize("lane", ["s8", "u8"])
+def test_ties_come_out_in_id_order(card, lane):
+    # Rows with values 0..2 in 8 dims: most distances tie, so every list is
+    # decided by the id rule: inside a list, across the fused kernel's row
+    # ranges, across the chained passes' lower bound, and in the top-c merge.
+    q, x, _, _, m = _case(card, lane, "L2", 9, 8192, 8, seed=5, small=True)
+    for k in (100, 300):
+        d, i = bfk.topk_fused(q, x, None, 8000, k, metric=m)
+        rd, ri = bfk.topk_fused(q.cpu(), x.cpu(), None, 8000, k, metric=m)
+        assert torch.equal(d.cpu(), rd) and torch.equal(i.cpu(), ri)
+        assert all(len(set(row)) == k for row in i.tolist())
+    d, i, t = bfk.topk_bigk(q, x, None, 8000, 300, metric=m, tile_n=256, local_c=64)
+    rd, ri, rt = bfk.topk_bigk(q.cpu(), x.cpu(), None, 8000, 300, metric=m, tile_n=256,
+                               local_c=64)
+    assert torch.equal(t.cpu(), rt)
+    assert torch.equal(d.cpu(), rd) and torch.equal(i.cpu(), ri)
+
+
+def test_fused_lower_bound_between_two_distances(card):
+    # A bound halfway between the 40th and 41st distance: the pass returns
+    # the 41st on.
+    q, x, _, _, m = _case(card, "f32", "Cosine", 5, 3000, 32, seed=8)
+    rd, ri = bfk.fused_topk_ref(q, x, None, 3000, 80, metric=m)
+    lo = (((rd[:, 39] + rd[:, 40]) / 2).contiguous(),
+          torch.zeros(5, dtype=torch.int32, device=card))
+    d, i = bfk.fused_topk(q, x, None, 3000, 40, metric=m, lo=lo)
+    assert_topk_parity(d, i, rd[:, 40:], ri[:, 40:])
+
+
+def test_bigk_truncation_falls_back_exactly(card):
+    # All near rows in one tile: that tile's 16th best lies inside the global
+    # top-40, the flag fires, and the exact wrapper answers from the scan.
+    rng = np.random.default_rng(7)
+    target = unit_rows(rng, 1, 16)
+    near = target + 0.01 * rng.standard_normal((64, 16)).astype(np.float32)
+    x = np.concatenate([near, rng.standard_normal((192, 16)).astype(np.float32)])
+    x = torch.from_numpy(x / np.linalg.norm(x, axis=1, keepdims=True)).to(card)
+    q = torch.from_numpy(target).to(card)
+    kw = dict(metric=VecSimMetric.Cosine, tile_n=64, local_c=16)
+    assert bool(bfk.topk_bigk(q, x, None, 256, 40, **kw)[2].any())
+    before = bfk.topk_bigk_exact.fallbacks
+    d, i = bfk.topk_bigk_exact(q, x, None, 256, 40, kind="float", **kw)
+    assert bfk.topk_bigk_exact.fallbacks == before + 1
+    rd, ri = bfk.fused_topk_ref(q, x, None, 256, 40, metric=VecSimMetric.Cosine)
+    assert_topk_parity(d, i, rd, ri)
+
+
+def test_default_device_is_the_card(card):
+    idx = BruteForceIndex(BFParams(type=VecSimType.FLOAT32, dim=8, metric=VecSimMetric.L2))
+    assert idx.store.device.type == "cuda"
+    idx.add_vector(np.ones(8, np.float32), 3)
+    assert idx.store.device_arrays()["data"].is_cuda
+    assert idx.topk_query(np.ones(8, np.float32), 1).ids.tolist() == [3]
+
+
+@pytest.mark.parametrize("lane", LANES)
+def test_index_on_card_matches_index_on_cpu(card, lane, monkeypatch):
     monkeypatch.setattr(config, "tile_n", 256)
     monkeypatch.setattr(config, "gm_group_n", 32)
     rng = np.random.default_rng(3)
-    x, q = unit_rows(rng, 1500, 48), unit_rows(rng, 9, 48)
-    params = BFParams(type=VecSimType.FLOAT32, dim=48, metric=VecSimMetric[metric])
-    gpu, cpu = BruteForceIndex(params, device=card), BruteForceIndex(params)
-    for idx in (gpu, cpu):
-        idx.add_vector_batch(x, range(1500))
-        for lab in range(0, 1500, 7):
-            idx.delete_vector(lab)
-    before = bfk.group_min_scores.launches
-    assert_replies_parity(gpu.topk_query_batch(q, 10), cpu.topk_query_batch(q, 10))
-    assert bfk.group_min_scores.launches == before + 1
-    assert_replies_parity(gpu.topk_query_batch(q, 64), cpu.topk_query_batch(q, 64))
+    x, q = _rows(rng, 1500, 48, lane), _rows(rng, 9, 48, lane)
+    tol = 1e-6 if lane in ("s8", "u8") else TOL
+    wrappers = (bfk.group_min_scores, bfk.fused_topk, bfk.tile_topc)
+    for metric in METRICS:
+        params = BFParams(type=_VTYPES[lane], dim=48, metric=VecSimMetric[metric])
+        gpu, cpu = BruteForceIndex(params, device=card), BruteForceIndex(params, device="cpu")
+        for idx in (gpu, cpu):
+            idx.add_vector_batch(x, range(1500))
+            for lab in range(0, 1500, 7):
+                idx.delete_vector(lab)
+        for k, want in ((10, (1, 0, 0)), (64, (0, 1, 0)), (200, (0, 0, 1))):
+            before = [w.launches for w in wrappers]
+            assert_replies_parity(gpu.topk_query_batch(q, k), cpu.topk_query_batch(q, k), tol)
+            assert tuple(w.launches - b for w, b in zip(wrappers, before)) == want, (metric, k)

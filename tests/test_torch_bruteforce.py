@@ -1,10 +1,11 @@
 """The port's flat index against the JAX package's, end to end on the CPU.
 
 The same add -> delete (swap-with-last) -> overwrite -> query sequence goes
-through both packages' ``create_index``. The port serves fp32 k <= 32 from
-the group-min engine (its kernel's plain version on the CPU) and every other
-k and type from the streaming scan; the JAX package on the CPU serves all of
-them from its streaming scan, the engine the group-min one must equal.
+through both packages' ``create_index``. The port serves k <= 32 from the
+group-min engine, k <= 128 from the fused engine and k <= 2048 from the
+big-k engine (their kernels' plain versions on the CPU); the JAX package on
+the CPU serves all of them from its streaming scan, the engine the others
+must equal.
 Distances within 1e-5, ids equal except at near-ties; integer stores
 bit-exact.
 """
@@ -54,7 +55,7 @@ def _pair(metric, multi, vtype="FLOAT32"):
                             metric=types.VecSimMetric[metric], multi=multi)
         return types.VecSimParams(algo=types.VecSimAlgo.BF, bfParams=bf)
 
-    return jcreate(params(jt)), tcreate(params(tt))
+    return jcreate(params(jt)), tcreate(params(tt), device="cpu")
 
 
 def _vectors(rng, n, vtype):
@@ -162,7 +163,7 @@ def test_convert_carries_a_jax_index_with_deletes(multi, small_tiles):
     rng = np.random.default_rng(7)
     j, t0 = _pair("L2", multi)
     live, _ = _fill(rng, j, t0, multi)
-    t = bruteforce_from_state(export_state(j))
+    t = bruteforce_from_state(export_state(j), device="cpu")
     assert t.index_size == j.index_size and t.index_label_count == j.index_label_count
     state_j, state_t = export_state(j), export_state(t)
     assert state_t["labels"] == state_j["labels"] and state_t["count"] == state_j["count"]

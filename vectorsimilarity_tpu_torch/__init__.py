@@ -3,10 +3,11 @@
 A second package beside the JAX one, ported slice by slice (ROADMAP.md).
 This slice serves the flat (brute-force) index: add / delete / overwrite,
 exact k-NN (batched and device-resident), range queries, batch iterators and
-timeouts; L2 / IP / Cosine; fp32 through the hand-written group-min kernel
-(``csrc/bf_topk_gm.cu``) and every other type through the exact streaming
-scan. Stores live on an explicit torch device. The package imports torch and
-never jax.
+timeouts; L2 / IP / Cosine. fp32, bf16, fp16, int8 and uint8 stores answer
+k-NN through three hand-written kernels (``csrc/``: group-min for k <= 32,
+fused top-k for k <= 128, per-tile top-c for k <= 2048), fp64 stores through
+the exact streaming scan. Stores live on the current CUDA device unless the
+caller passes ``device="cpu"``. The package imports torch and never jax.
 """
 
 from .types import (  # noqa: F401

@@ -4,20 +4,23 @@ Counterpart of ``vectorsimilarity_tpu/config.py`` for the flat index. The
 engine bands stay the JAX package's, so both packages pick the same engine
 for a given k:
 
-- k <= ``gm_max_k``: the group-min engine (kernel K1,
-  ``ops/kernels/bf_topk.py``);
-- k <= ``max_k``: the single-buffer fused kernel (K3) in the JAX package;
-- k <= ``bigk_max``: the per-tile local-top-c kernel (K4) in the JAX package.
+- k <= ``gm_max_k``: the group-min engine (kernel K1, ``topk_gm_exact``);
+- k <= ``max_k``: the fused top-k kernel (K3, ``topk_fused``);
+- k <= ``bigk_max``: the per-tile local-top-c kernel (K4,
+  ``topk_bigk_exact``),
 
-K3, K4 and the bf16/fp16/int8/uint8 scoring lanes of K2 are not ported yet
-(ROADMAP queue 2). Until they are, every store and k outside the group-min
-engine's fp32 lane routes to the exact ``ops.distances.streaming_topk``.
+all in ``ops/kernels/bf_topk.py``, for fp32, bf16, fp16, int8 and uint8
+stores. The fused and big-k gates see k rounded up to a power of two, as the
+JAX index passes it. fp64 stores, multi-value labels, range queries, the
+batch iterator and the timeout-segmented scan stay on the exact
+``ops.distances.streaming_topk`` / ``full_scores``.
 
 Gates of the JAX package that existed only for the TPU are dropped: the
-device check (the port runs the same engine logic on the CPU with the
-kernel's plain version), the minimum batch (a TPU compiler workaround), the
-``dim % 128`` lane alignment, the VMEM budget and the fp32-precision gate
-(the kernel computes in IEEE fp32, not bf16_3x).
+device check and ``use_pallas`` (the port runs the same engine logic on the
+CPU with the kernels' plain versions), the minimum batch (a TPU compiler
+workaround), the ``dim % 128`` lane alignment (a TPU relayout copy), the
+VMEM budget and the fp32-precision gate (the kernels compute in IEEE fp32,
+not bf16_3x).
 """
 
 from __future__ import annotations
@@ -35,32 +38,59 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
-# Rows per kernel tile and strided groups per tile (group g of tile j holds
-# rows j*tile_n + g + l*group_n, l < tile_n // group_n).
+# Rows per kernel tile and strided groups per tile of the group-min engine
+# (group g of tile j holds rows j*tile_n + g + l*gm_group_n,
+# l < tile_n // gm_group_n).
 tile_n: int = 4096
 gm_group_n: int = 256
 gm_slack: int = 8
 gm_max_k: int = 32
 
-# Bands of the engines still to port (K3: single-buffer, K4: big-k).
+# Bands of the fused kernel (K3) and the big-k kernel (K4). ``local_c`` is the
+# number of survivors each tile hands to the big-k merge. ``group_n`` is the
+# width of the JAX fused kernel's compact selection view; the port's kernel
+# keeps sorted lists instead and does not read it.
 max_k: int = 128
+group_n: int = 512
 bigk_max: int = 2048
+local_c: int = 32
 
 # Timeout-aware queries scan bounded segments of this many rows, with the
 # user's timeout callback polled between them.
 timeout_poll_rows: int = 1 << 18
 
+_KERNEL_DTYPES = {
+    "float": (torch.float32, torch.bfloat16, torch.float16),
+    "int": (torch.int8, torch.uint8),
+}
+
+
+def _kernel_common(kind: str, capacity: int, dtype) -> bool:
+    """What every kernel engine needs: a store type with a scoring lane
+    (fp64 has none) and a capacity that tiles evenly."""
+    if dtype not in _KERNEL_DTYPES.get(kind, ()):
+        return False
+    return capacity % min(tile_n, capacity) == 0
+
 
 def gm_enabled(kind: str, k: int, capacity: int, dtype) -> bool:
-    """Gate of the group-min engine: fp32 float stores, k <= gm_max_k, a
-    capacity that tiles evenly, and enough groups for the coverage bound
-    (``n_groups >= k + slack + 2``)."""
-    if kind != "float" or dtype != torch.float32:
-        return False
-    if k > gm_max_k:
+    """Gate of the group-min engine: k <= gm_max_k and enough groups for the
+    coverage bound (``n_groups >= k + slack + 2``)."""
+    if not _kernel_common(kind, capacity, dtype) or k > gm_max_k:
         return False
     tile = min(tile_n, capacity)
-    if capacity % tile:
-        return False
     n_groups = (capacity // tile) * min(gm_group_n, tile)
     return n_groups >= k + gm_slack + 2
+
+
+def fused_enabled(kind: str, k: int, capacity: int, dtype) -> bool:
+    """Gate of the fused top-k kernel: k <= max_k."""
+    return _kernel_common(kind, capacity, dtype) and k <= max_k
+
+
+def bigk_enabled(kind: str, k: int, capacity: int, dtype) -> bool:
+    """Gate of the per-tile local-top-c kernel: max_k < k <= bigk_max and
+    enough tiles of survivors to cover k."""
+    if not _kernel_common(kind, capacity, dtype) or not max_k < k <= bigk_max:
+        return False
+    return max(capacity // tile_n, 1) * local_c >= k

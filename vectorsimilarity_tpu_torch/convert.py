@@ -46,9 +46,10 @@ def export_state(index) -> dict:
     }
 
 
-def bruteforce_from_state(state: dict, *, device="cpu") -> BruteForceIndex:
-    """This package's ``BruteForceIndex`` on ``device`` holding the same
-    rows, ids, labels and label slots as the exported index."""
+def bruteforce_from_state(state: dict, *, device=None) -> BruteForceIndex:
+    """This package's ``BruteForceIndex`` on ``device`` (the current CUDA
+    device by default, the CPU only on request) holding the same rows, ids,
+    labels and label slots as the exported index."""
     p = state["params"]
     params = BFParams(
         type=VecSimType(p["type"]),

@@ -2,8 +2,9 @@
 
 Counterpart of ``vectorsimilarity_tpu/core/abstract_index.py`` (the
 reference's ``VecSimIndexAbstract``, ``vec_sim_index.h:42-390``): owns
-dim/type/metric/blockSize, the vector ``BlockStore`` on an explicit torch
-device, and the preprocessing pipeline (the reference's calculator +
+dim/type/metric/blockSize, the vector ``BlockStore`` on a torch device (the
+current CUDA device unless the caller names another), and the preprocessing
+pipeline (the reference's calculator +
 preprocessors, ``spaces/computer/*``).
 """
 
@@ -27,6 +28,20 @@ from .labels import MultiLabelMap, SingleLabelMap
 from .store import BlockStore, FieldSpec, _bucket_capacity
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point keeps its store on: ``None`` is the current
+    CUDA device, and an error where there is none. The CPU is used only when
+    the caller asks for it (``device="cpu"``)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: this package runs on the card by default; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def pow2_bucket(n: int, lo: int = 1) -> int:
     b = lo
     while b < n:
@@ -45,7 +60,7 @@ class DeviceVectorIndex(VecSimIndexBase):
         metric: VecSimMetric,
         multi: bool,
         block_size: int,
-        device="cpu",
+        device=None,
         log_ctx: Any = None,
         initial_capacity: int = 0,
     ):
@@ -57,7 +72,7 @@ class DeviceVectorIndex(VecSimIndexBase):
         self.metric = VecSimMetric(metric)
         self.multi = bool(multi)
         self.block_size = int(block_size) or DEFAULT_BLOCK_SIZE
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
         self.np_dtype = numpy_dtype(self.vtype)
         self.is_int = self.vtype in (VecSimType.INT8, VecSimType.UINT8)
@@ -65,7 +80,12 @@ class DeviceVectorIndex(VecSimIndexBase):
 
         # fp64 stores compute in fp64 on the device (torch has it natively;
         # the JAX package does so only with x64 enabled).
-        fields: dict[str, FieldSpec] = {"data": FieldSpec((self.dim,), self.np_dtype)}
+        # bfloat16 rows are bfloat16 on the device also where numpy lacks the
+        # type and the host mirror holds their fp32 values.
+        self.data_dtype = torch.bfloat16 if self.vtype == VecSimType.BFLOAT16 else None
+        fields: dict[str, FieldSpec] = {
+            "data": FieldSpec((self.dim,), self.np_dtype, device_dtype=self.data_dtype)
+        }
         fields["label"] = FieldSpec((), np.int64, fill=-1)
         if self.multi:
             fields["slot"] = FieldSpec((), np.int32, fill=-1)
@@ -90,18 +110,26 @@ class DeviceVectorIndex(VecSimIndexBase):
         arr = np.asarray(blob)
         if arr.dtype != self.np_dtype:
             arr = arr.astype(self.np_dtype)
+        arr = self._as_stored(arr)
         if arr.ndim == 1:
             arr = arr[None, :]
         if arr.shape[-1] != self.dim:
             raise ValueError(f"expected dim {self.dim}, got {arr.shape[-1]}")
         return arr
 
+    def _as_stored(self, arr: np.ndarray) -> np.ndarray:
+        """Host rows with the values the device copy holds: an fp32 host
+        mirror of bfloat16 rows is rounded to bfloat16 values."""
+        if self.data_dtype is None or arr.dtype != np.float32:
+            return arr
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.data_dtype).float().numpy()
+
     def _normalize_rows(self, arr: np.ndarray) -> np.ndarray:
         acc = np.float64 if arr.dtype == np.float64 else np.float32
         v = arr.astype(acc)
         norms = np.sqrt(np.sum(v * v, axis=-1, keepdims=True))
         norms[norms == 0] = 1.0
-        return (v / norms).astype(arr.dtype)
+        return self._as_stored((v / norms).astype(arr.dtype))
 
     def preprocess_storage(self, blob: np.ndarray) -> dict[str, np.ndarray]:
         """Blob -> storage field rows (CosinePreprocessor semantics:
@@ -140,9 +168,12 @@ class DeviceVectorIndex(VecSimIndexBase):
         """Upload a preprocessed host batch to the store's device."""
         if arr is None:
             return None
-        if arr.dtype.name == "bfloat16":
-            return torch.from_numpy(arr.astype(np.float32)).to(self.device, torch.bfloat16)
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        if arr.dtype.name == "bfloat16":  # torch cannot wrap ml_dtypes arrays
+            arr = arr.astype(np.float32)
+        t = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        if self.data_dtype is not None:
+            t = t.to(self.data_dtype)
+        return t
 
     def store_tuple(self, dev: dict[str, torch.Tensor]) -> tuple:
         """Device tensors in the layout ``ops.distances`` expects."""

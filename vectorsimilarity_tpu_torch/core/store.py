@@ -36,27 +36,26 @@ def torch_dtype(dtype: np.dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
 
 
-def _to_device(rows: np.ndarray, device) -> torch.Tensor:
-    """A copy of host rows on ``device``. Always a copy, also on the CPU:
-    the device tensors are written in place and must not alias the host
-    mirrors."""
+def _to_device(rows: np.ndarray, device, dtype: torch.dtype) -> torch.Tensor:
+    """A copy of host rows on ``device`` as ``dtype``. Always a copy, also on
+    the CPU: the device tensors are written in place and must not alias the
+    host mirrors."""
     if rows.dtype.name == "bfloat16":  # torch cannot wrap ml_dtypes arrays
-        return torch.from_numpy(rows.astype(np.float32)).to(device, torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(rows)).to(device, copy=True)
+        rows = rows.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(rows)).to(device, dtype, copy=True)
 
 
 class FieldSpec:
     """One SoA field: trailing shape + dtype + pad value. The host mirror
-    and the device copy hold the same type."""
+    and the device copy hold the same type, unless ``device_dtype`` names
+    another for the device copy (bfloat16 rows over an fp32 host mirror where
+    numpy has no bfloat16)."""
 
-    def __init__(self, shape: tuple, dtype, fill=0):
+    def __init__(self, shape: tuple, dtype, fill=0, device_dtype=None):
         self.shape = tuple(shape)
         self.dtype = np.dtype(dtype)
         self.fill = fill
-
-    @property
-    def torch_dtype(self) -> torch.dtype:
-        return torch_dtype(self.dtype)
+        self.torch_dtype = device_dtype if device_dtype is not None else torch_dtype(self.dtype)
 
 
 class BlockStore:
@@ -208,7 +207,8 @@ class BlockStore:
         self._flush_moves()
         if self._device_capacity != self.capacity:
             for name in self.fields:
-                self._device[name] = _to_device(self.host[name], self.device)
+                self._device[name] = _to_device(self.host[name], self.device,
+                                                self.fields[name].torch_dtype)
             self._device_capacity = self.capacity
             for dset in self._dirty_rows.values():
                 dset.clear()
@@ -218,7 +218,8 @@ class BlockStore:
         start = self._dirty_from
         if start < self.count:
             for name in self.fields:
-                chunk = _to_device(self.host[name][start : self.count], self.device)
+                chunk = _to_device(self.host[name][start : self.count], self.device,
+                                   self.fields[name].torch_dtype)
                 self._device[name][start : self.count].copy_(chunk)
             for name, dset in self._dirty_rows.items():
                 self._dirty_rows[name] = {r for r in dset if r < start}
@@ -227,7 +228,7 @@ class BlockStore:
             if not dset:
                 continue
             idx = np.fromiter(dset, dtype=np.int64, count=len(dset))
-            rows = _to_device(self.host[name][idx], self.device)
+            rows = _to_device(self.host[name][idx], self.device, self.fields[name].torch_dtype)
             self._device[name].index_copy_(0, torch.from_numpy(idx).to(self.device), rows)
             dset.clear()
         self._dirty_from = self.count

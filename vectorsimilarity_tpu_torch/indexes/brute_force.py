@@ -1,10 +1,12 @@
 """Brute-force (Flat) index — counterpart of ``vectorsimilarity_tpu/indexes/brute_force.py``.
 
 The reference's per-vector distance loop + bounded heap
-(``brute_force.h:242-291``) becomes the group-min engine (kernel K1,
-``ops/kernels/bf_topk.py``) for fp32 stores and k <= ``config.gm_max_k``,
-and the exact streaming scan (``ops.distances.streaming_topk``) for every
-other store and k. Multi-value "best score per label"
+(``brute_force.h:242-291``) becomes one of three kernel engines of
+``ops/kernels/bf_topk.py``, chosen by k as the JAX index chooses (group-min
+for k <= 32, fused for k <= 128, per-tile top-c for k <= 2048; fp32, bf16,
+fp16, int8 and uint8 stores), and the exact streaming scan
+(``ops.distances.streaming_topk``) for fp64 stores and every k beyond.
+Multi-value "best score per label"
 (``brute_force_multi.h:17-277``) becomes a scatter-min over dense label
 slots (``ops.topk``). Swap-with-last deletion, id/label maps, the
 ad-hoc-vs-batches decision tree (``brute_force.h:380-451``) and the
@@ -24,7 +26,7 @@ from ..core.abstract_index import DeviceVectorIndex, pow2_bucket
 from ..core.interface import TimeoutBudget
 from ..core.results import QueryReply, make_reply
 from ..ops.distances import full_scores, streaming_topk
-from ..ops.kernels.bf_topk import topk_gm_exact
+from ..ops.kernels.bf_topk import topk_bigk_exact, topk_fused, topk_gm_exact
 from ..ops.topk import slot_min_scores, topk_by_slot
 from ..types import (
     BFParams,
@@ -45,9 +47,10 @@ _SCAN_CHUNK = 1 << 18
 
 
 class BruteForceIndex(DeviceVectorIndex):
-    """Flat index over a block store on ``device`` (single- or multi-value)."""
+    """Flat index over a block store on ``device`` (single- or multi-value):
+    the current CUDA device by default, the CPU only on request."""
 
-    def __init__(self, params: BFParams, log_ctx: Any = None, *, device="cpu"):
+    def __init__(self, params: BFParams, log_ctx: Any = None, *, device=None):
         super().__init__(
             vtype=params.type,
             dim=params.dim,
@@ -165,22 +168,32 @@ class BruteForceIndex(DeviceVectorIndex):
         return max(min(_SCAN_CHUNK, self.store.capacity), k)
 
     def _search(self, qd: torch.Tensor, qn, dev: dict, k: int):
-        """Top-k of a preprocessed device batch over the synced store: the
-        group-min engine where ``config.gm_enabled``, else the streaming
-        scan. Returns device (dists [B, k], row ids [B, k])."""
-        count = self.store.count
-        if config.gm_enabled(self.store_kind, k, self.store.capacity,
-                             self.store.fields["data"].torch_dtype):
-            data, sqn = self.store_tuple(dev)
+        """Top-k of a preprocessed device batch over the synced store, by the
+        engine the JAX index picks for this k and store: group-min, fused,
+        per-tile top-c, else the streaming scan. The fused and big-k gates
+        see k rounded up to a power of two, as there. Returns device
+        (dists [B, k], row ids [B, k])."""
+        count, cap = self.store.count, self.store.capacity
+        kind, dtype = self.store_kind, self.store.fields["data"].torch_dtype
+        data, aux = self.store_tuple(dev)
+        tile_n = min(config.tile_n, cap)
+        kpad = min(pow2_bucket(k), cap)
+        if config.gm_enabled(kind, k, cap, dtype):
             return topk_gm_exact(
-                qd, data, sqn, count, k, metric=self.metric,
-                tile_n=min(config.tile_n, self.store.capacity),
-                group_n=config.gm_group_n, slack=config.gm_slack,
-                chunk=self._chunk(k),
+                qd, data, aux, count, k, metric=self.metric, kind=kind, tile_n=tile_n,
+                group_n=config.gm_group_n, slack=config.gm_slack, chunk=self._chunk(k),
+                query_norms=qn,
+            )
+        if config.fused_enabled(kind, kpad, cap, dtype):
+            return topk_fused(qd, data, aux, count, k, metric=self.metric, query_norms=qn)
+        if config.bigk_enabled(kind, kpad, cap, dtype):
+            return topk_bigk_exact(
+                qd, data, aux, count, k, metric=self.metric, kind=kind, tile_n=tile_n,
+                local_c=config.local_c, chunk=self._chunk(k), query_norms=qn,
             )
         return streaming_topk(
-            qd, self.store_tuple(dev), count, k, metric=self.metric,
-            kind=self.store_kind, chunk=self._chunk(k), query_norms=qn,
+            qd, (data, aux), count, k, metric=self.metric,
+            kind=kind, chunk=self._chunk(k), query_norms=qn,
         )
 
     def search_knn_device(self, qd: torch.Tensor, k: int, *, qn=None):

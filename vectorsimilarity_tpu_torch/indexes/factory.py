@@ -23,9 +23,10 @@ def _with_defaults_bf(p: BFParams) -> BFParams:
     return dataclasses.replace(p, blockSize=p.blockSize or DEFAULT_BLOCK_SIZE)
 
 
-def create_index(params: VecSimParams, *, device="cpu"):
+def create_index(params: VecSimParams, *, device=None):
     """``VecSimIndex_New`` equivalent (``vec_sim.cpp:213``); the index keeps
-    its store on ``device``."""
+    its store on ``device``: the current CUDA device by default (an error
+    where there is none), the CPU only on request."""
     algo = VecSimAlgo(params.algo)
     if algo == VecSimAlgo.BF:
         from .brute_force import BruteForceIndex

@@ -1,31 +1,48 @@
-"""Group-min engine of the flat index: kernel K1 and its host part.
+"""The flat index's three top-k kernel engines and their host parts.
 
-Counterpart of the group-min engine in
-``vectorsimilarity_tpu/ops/pallas/bf_topk.py`` (``_make_gm_kernel``,
-``pallas_topk_gm``, ``pallas_topk_gm_exact``), fp32 lane only.
+Counterpart of ``vectorsimilarity_tpu/ops/pallas/bf_topk.py``. Every function
+there that reaches ``pl.pallas_call`` has its kernel here, CUDA C++ for
+sm_90a under ``csrc/``, each with the scoring prologue ``_tile_scores`` (K2,
+``csrc/bf_scores.cuh``) fused in, in five lanes: fp32, bf16, fp16 (sums in
+fp32), int8 and uint8 (exact integers).
 
-The kernel (``csrc/bf_topk_gm.cu``, CUDA C++ for sm_90a) scores every store
-row against the query batch and writes only the strided group minima of each
-``tile_n``-row tile: group g of tile j holds rows ``j*tile_n + g + l*G``,
-``l < L = tile_n / G``. No selection state lives in the kernel. The host part,
-plain PyTorch on the same device, then
+=========  ======================  =========================  ====================
+k band     JAX                     kernel wrapper             host part
+=========  ======================  =========================  ====================
+k <= 32    ``pallas_topk_gm``      ``group_min_scores`` (K1)  ``topk_gm(_exact)``
+k <= 128   ``pallas_topk``         ``fused_topk`` (K3)        ``topk_fused``
+k <= 2048  ``pallas_topk_bigk``    ``tile_topc`` (K4)         ``topk_bigk(_exact)``
+=========  ======================  =========================  ====================
 
-1. takes the S+1 smallest group minima per query (S = k + slack) with the
-   exact (distance, position) selector ``_lex_topk``;
-2. gathers the S*L member rows of the S suspect groups, sorted by id;
-3. rescores them in IEEE fp32 with a batched matmul (the streaming engine's
-   formula) and selects the k best in (distance, id) order;
-4. flags a query as uncovered when the k-th rescored distance does not beat
-   the first unselected group minimum by eps (a true neighbour may then hide
-   in an unselected group).
+K1 (``csrc/bf_topk_gm.cu``) scores every store row against the query batch
+and writes only the strided group minima of each ``tile_n``-row tile: group g
+of tile j holds rows ``j*tile_n + g + l*G``, ``l < L = tile_n / G``. The host
+part takes the S+1 smallest group minima per query (S = k + slack), gathers
+and rescores the S*L member rows exactly, selects the k best in (distance,
+id) order and flags a query as uncovered when the k-th rescored distance does
+not beat the first unselected group minimum by eps (a true neighbour may then
+hide in an unselected group). Any true top-k row lies in a group whose
+minimum is <= the true k-th distance, so it can be missed only if that group
+ranks below the S suspects, which the flag detects.
 
-Any true top-k row lies in a group whose minimum is <= the true k-th
-distance, so it can be missed only if that group ranks below the S suspects,
-which the coverage flag detects. ``topk_gm_exact`` answers a batch with any
-uncovered query from the exact ``streaming_topk`` instead.
+K3 (``csrc/bf_topk_fused.cu``) returns the exact k <= 128 smallest (distance,
+id) pairs per query, optionally above a per-query lower bound; ``topk_fused``
+chains passes of 128 on that bound for larger k.
 
-On a CUDA tensor ``group_min_scores`` launches the kernel or raises; only a
-tensor on the CPU takes the plain version ``group_min_scores_ref``.
+K4 (``csrc/bf_topk_topc.cu``) returns each tile's c smallest pairs; the host
+part takes one exact top-k over the survivors and flags a query as truncated
+when a tile's c-th best lies inside its global top-k (that tile may hide
+more).
+
+``topk_gm_exact`` and ``topk_bigk_exact`` answer a batch with any flagged
+query from the exact ``streaming_topk`` instead.
+
+Beside each kernel stands its plain PyTorch version (``group_min_scores_ref``,
+``fused_topk_ref``, ``tile_topc_ref``), built from ``scores_float`` /
+``scores_int`` and ``_lex_topk``. On a CUDA tensor a wrapper launches its
+kernel or raises; only a tensor on the CPU takes the plain version. Each
+wrapper counts its launches (``wrapper.launches``), each ``_exact`` host part
+its fallbacks.
 """
 
 from __future__ import annotations
@@ -35,6 +52,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -42,28 +60,47 @@ from typing import Optional
 import torch
 
 from ...types import VecSimMetric
-from ..distances import _lex_topk, scores_float, streaming_topk
+from ..distances import _lex_topk, _merge_topk, scores_float, scores_int, streaming_topk
 
-_SRC = Path(__file__).resolve().parents[2] / "csrc" / "bf_topk_gm.cu"
+_CSRC = Path(__file__).resolve().parents[2] / "csrc"
+_SOURCES = ("bf_topk_gm", "bf_topk_fused", "bf_topk_topc")
+_HEADERS = ("bf_scores.cuh", "bf_select.cuh")
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+# No --use_fast_math: the integer Cosine lane needs IEEE divides.
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+PASS_K = 128  # longest list of the fused kernel; larger k chains passes
+MAX_C = 128  # longest per-tile list of the top-c kernel
+_FUSED_BM = 64  # queries per block of the fused kernel (csrc/bf_select.cuh)
+_FUSED_BLOCKS = 528  # blocks the fused kernel's grid aims for: 4 per SM
+_FUSED_MIN_ROWS = 1024  # shortest row range worth a block of its own
 
-class _Kernel:
-    """The built and loaded shared library of ``bf_topk_gm.cu``."""
+# Lane codes of the C entry points (csrc/bf_scores.cuh).
+_LANES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8: 3, torch.uint8: 4}
 
-    def __init__(self, path: Path, build_log: str, build_seconds: float):
-        self.path = path
-        self.build_log = build_log  # nvcc/ptxas output (registers, spills)
+
+class _Kernels:
+    """The built and loaded shared libraries, one per source."""
+
+    def __init__(self, paths: dict, build_logs: dict, build_seconds: float):
+        self.paths = paths
+        self.build_logs = build_logs  # nvcc/ptxas output per source (registers, spills)
         self.build_seconds = build_seconds
-        lib = ctypes.CDLL(str(path))
-        self.fn = lib.bf_topk_gm_f32
-        self.fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        self.fn.restype = ctypes.c_int
+        ptr, num = ctypes.c_void_p, ctypes.c_int
+        self.gm = self._fn("bf_topk_gm", [ptr] * 6 + [num] * 8 + [ptr])
+        self.fused = self._fn("bf_topk_fused", [ptr] * 9 + [num] * 9 + [ptr])
+        self.topc = self._fn("bf_topk_topc", [ptr] * 7 + [num] * 8 + [ptr])
+
+    def _fn(self, name: str, argtypes: list):
+        fn = getattr(ctypes.CDLL(str(self.paths[name])), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        return fn
 
 
-_kernel: Optional[_Kernel] = None
+_kernels: Optional[_Kernels] = None
+_load_lock = threading.Lock()  # one build per process, whichever thread asks first
 
 
 def _nvcc() -> str:
@@ -76,30 +113,142 @@ def _nvcc() -> str:
     return found
 
 
-def load_kernel() -> _Kernel:
-    """Build ``csrc/bf_topk_gm.cu`` into ``build/torch_kernels/`` at first
-    use (the file name carries a hash of the source and flags, so an edited
-    source rebuilds) and load it with ctypes."""
-    global _kernel
-    if _kernel is not None:
-        return _kernel
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = _BUILD_DIR / f"libbf_topk_gm_{tag}.so"
-    log, seconds = "", 0.0
-    if not out.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        res = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                             capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC}:\n{res.stdout}\n{res.stderr}")
-        os.replace(tmp, out)
-        log = res.stdout + res.stderr
-    _kernel = _Kernel(out, log, seconds)
-    return _kernel
+def load_kernel() -> _Kernels:
+    """Build every source under ``csrc/`` into ``build/torch_kernels/`` at
+    first use, one nvcc per source and all started together, and load them
+    with ctypes. The file names carry a hash of all sources, headers and
+    flags, so an edited source or header rebuilds."""
+    global _kernels
+    with _load_lock:
+        if _kernels is None:
+            _kernels = _build_and_load()
+        return _kernels
+
+
+def _build_and_load() -> _Kernels:
+    digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for name in [f"{s}.cu" for s in _SOURCES] + list(_HEADERS):
+        digest.update((_CSRC / name).read_bytes())
+    tag = digest.hexdigest()[:12]
+    paths = {s: _BUILD_DIR / f"lib{s}_{tag}.so" for s in _SOURCES}
+    logs = {s: "" for s in _SOURCES}
+    t0 = time.perf_counter()
+    procs = {}
+    for s, out in paths.items():
+        if not out.exists():
+            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            procs[s] = (tmp, subprocess.Popen(
+                [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{s}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for s, (tmp, proc) in procs.items():
+        logs[s] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {s}.cu:\n{logs[s]}")
+        else:
+            os.replace(tmp, paths[s])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return _Kernels(paths, logs, time.perf_counter() - t0 if procs else 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Shared by the three wrappers: checks, lane auxiliaries, launch plumbing
+# ---------------------------------------------------------------------------
+
+
+def _check(queries, data, sqnorms, metric, query_norms) -> None:
+    """Raise on what no kernel of this module takes."""
+    if queries.dim() != 2 or data.dim() != 2 or queries.shape[1] != data.shape[1]:
+        raise ValueError(f"shapes {tuple(queries.shape)} and {tuple(data.shape)}")
+    if data.dtype not in _LANES:
+        raise TypeError("the kernels take float32, bfloat16, float16, int8 or uint8 "
+                        f"stores, got {data.dtype}")
+    if queries.dtype != data.dtype:
+        raise TypeError(f"queries are {queries.dtype}, the store is {data.dtype}")
+    B, D = queries.shape
+    N = data.shape[0]
+    if N >= 2 ** 31:
+        raise ValueError(f"row ids are int32, got N={N}")
+    is_int = not data.dtype.is_floating_point
+    if is_int and 255 * 255 * D >= 2 ** 31:
+        raise ValueError(f"the integer lanes sum in int32: D={D} may overflow")
+    aux = {}
+    if (metric == VecSimMetric.L2 and not is_int) or (metric == VecSimMetric.Cosine and is_int):
+        what = "norms" if is_int else "sqnorms"
+        if sqnorms is None or tuple(sqnorms.shape) != (N,):
+            raise ValueError(f"{metric.name} on a {data.dtype} store needs {what} [N]")
+        aux[what] = sqnorms
+        if is_int:
+            if query_norms is None or tuple(query_norms.shape) != (B,):
+                raise ValueError("Cosine on an integer store needs query_norms [B]")
+            aux["query_norms"] = query_norms
+    for name, t in aux.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    for t in [queries, data, *aux.values()]:
+        if not t.is_contiguous():
+            raise ValueError("the kernels take contiguous tensors")
+        if t.device != data.device:
+            raise ValueError(f"tensors on {t.device} and {data.device}")
+
+
+def _check_tiles(data, tile_n: int) -> int:
+    if tile_n <= 0 or data.shape[0] % tile_n:
+        raise ValueError(f"N={data.shape[0]} must be a multiple of tile_n={tile_n}")
+    return data.shape[0] // tile_n
+
+
+def _lane_aux(queries, sqnorms, metric, query_norms):
+    """(qaux_f [B] fp32, qaux_i [B] int32, raux [N] fp32) of a launch, None
+    where the lane and metric use none: the device half of the JAX
+    ``_mode_and_aux``. Float L2 carries |q|^2 and the rows' sqnorms; integer
+    L2 the exact |q|^2 (the rows' are summed in the kernel); integer Cosine
+    both sides' stored norms. uint8 needs no shift on this card."""
+    if queries.dtype.is_floating_point:
+        if metric != VecSimMetric.L2:
+            return None, None, None
+        qf = queries.float()
+        return torch.sum(qf * qf, dim=1), None, sqnorms
+    if metric == VecSimMetric.L2:
+        qi = queries.to(torch.int32)
+        return None, torch.sum(qi * qi, dim=1, dtype=torch.int32), None
+    if metric == VecSimMetric.Cosine:
+        return query_norms, None, sqnorms
+    return None, None, None
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _run(wrapper, name: str, data, call) -> None:
+    """Launch one kernel on ``data``'s device and current stream, raise on a
+    refused launch, count it. ``call(kernels, stream)`` returns the C entry
+    point's error code."""
+    if data.device.type != "cuda":
+        raise ValueError(f"the {name} kernel runs on CUDA tensors, got {data.device}")
+    kernels = load_kernel()
+    with torch.cuda.device(data.device):
+        err = call(kernels, torch.cuda.current_stream(data.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+    wrapper.launches += 1
+
+
+def _scores(queries, data, sqnorms, metric, query_norms, lo: int, hi: int):
+    """Plain scores [B, hi - lo] of rows [lo, hi)."""
+    aux = None if sqnorms is None else sqnorms[lo:hi]
+    if data.dtype.is_floating_point:
+        return scores_float(queries, data[lo:hi], metric, aux)
+    return scores_int(queries, data[lo:hi], metric, aux, query_norms)
+
+
+def _masked(s, lo: int, count: int):
+    """Scores of rows [lo, lo + width) with rows >= count at +inf."""
+    rows = torch.arange(lo, lo + s.shape[1], device=s.device)
+    return torch.where(rows[None, :] < count, s, float("inf"))
 
 
 # ---------------------------------------------------------------------------
@@ -107,76 +256,46 @@ def load_kernel() -> _Kernel:
 # ---------------------------------------------------------------------------
 
 
-def _check(queries, data, sqnorms, metric, tile_n, group_n) -> int:
-    """Validate a group-min call; returns G."""
-    if queries.dim() != 2 or data.dim() != 2 or queries.shape[1] != data.shape[1]:
-        raise ValueError(f"shapes {tuple(queries.shape)} and {tuple(data.shape)}")
-    G = min(group_n, tile_n)
-    if data.shape[0] % tile_n or tile_n % G:
-        raise ValueError(f"N={data.shape[0]} must be a multiple of tile_n={tile_n}, "
-                         f"and tile_n of G={G}")
-    tensors = [queries, data]
-    if metric == VecSimMetric.L2:
-        if sqnorms is None or tuple(sqnorms.shape) != (data.shape[0],):
-            raise ValueError("L2 needs sqnorms [N]")
-        tensors.append(sqnorms)
-    for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"the group-min kernel takes float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("the group-min kernel takes contiguous tensors")
-        if t.device != data.device:
-            raise ValueError(f"tensors on {t.device} and {data.device}")
-    return G
-
-
 def group_min_scores(queries: torch.Tensor, data: torch.Tensor,
                      sqnorms: Optional[torch.Tensor], count: int, *,
-                     metric: VecSimMetric, tile_n: int, group_n: int) -> torch.Tensor:
+                     metric: VecSimMetric, tile_n: int, group_n: int,
+                     query_norms: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Strided group minima ``gm [B, (N / tile_n) * G]`` (fp32) of the score
-    tiles, rows >= count at +inf.
+    tiles, rows >= count at +inf. ``sqnorms`` [N] carries the rows' sqnorms
+    (float L2) or stored norms (integer Cosine, with ``query_norms`` [B]).
 
     CUDA tensors launch the kernel (``group_min_scores.launches`` counts the
     launches); CPU tensors take ``group_min_scores_ref``; anything else
     raises.
     """
     metric = VecSimMetric(metric)
-    G = _check(queries, data, sqnorms, metric, tile_n, group_n)
+    _check(queries, data, sqnorms, metric, query_norms)
+    n_tiles = _check_tiles(data, tile_n)
+    G = min(group_n, tile_n)
+    if tile_n % G:
+        raise ValueError(f"tile_n={tile_n} must be a multiple of G={G}")
     if data.device.type == "cpu":
-        return group_min_scores_ref(queries, data, sqnorms, count,
-                                    metric=metric, tile_n=tile_n, group_n=group_n)
-    return _launch(queries, data, sqnorms, count, metric, tile_n, G)
+        return group_min_scores_ref(queries, data, sqnorms, count, metric=metric,
+                                    tile_n=tile_n, group_n=group_n, query_norms=query_norms)
+    B, D = queries.shape
+    qf, qi, rf = _lane_aux(queries, sqnorms, metric, query_norms)
+    out = torch.empty((B, n_tiles * G), dtype=torch.float32, device=data.device)
+    _run(group_min_scores, "bf_topk_gm", data, lambda kern, stream: kern.gm(
+        queries.data_ptr(), data.data_ptr(), _ptr(qf), _ptr(qi), _ptr(rf), out.data_ptr(),
+        _LANES[data.dtype], B, D, n_tiles, tile_n, G, min(int(count), data.shape[0]),
+        int(metric), stream))
+    return out
 
 
 group_min_scores.launches = 0
 
 
-def _launch(queries, data, sqnorms, count, metric, tile_n, G) -> torch.Tensor:
-    if data.device.type != "cuda":
-        raise ValueError(f"the group-min kernel runs on CUDA tensors, got {data.device}")
-    B, D = queries.shape
-    N = data.shape[0]
-    l2 = metric == VecSimMetric.L2
-    qaux = torch.sum(queries * queries, dim=1) if l2 else None
-    out = torch.empty((B, (N // tile_n) * G), dtype=torch.float32, device=data.device)
-    fn = load_kernel().fn
-    stream = torch.cuda.current_stream(data.device).cuda_stream
-    with torch.cuda.device(data.device):
-        err = fn(queries.data_ptr(), data.data_ptr(),
-                 None if qaux is None else qaux.data_ptr(),
-                 None if not l2 else sqnorms.data_ptr(), out.data_ptr(),
-                 B, D, N // tile_n, tile_n, G, min(int(count), N), int(l2), stream)
-    if err != 0:
-        raise RuntimeError(f"bf_topk_gm_f32 launch failed: cudaError_t {err}")
-    group_min_scores.launches += 1
-    return out
-
-
 def group_min_scores_ref(queries: torch.Tensor, data: torch.Tensor,
                          sqnorms: Optional[torch.Tensor], count: int, *,
-                         metric: VecSimMetric, tile_n: int, group_n: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, on any device: a chunked fp32
-    matmul (``scores_float``) and an ``amin`` over the strided group view."""
+                         metric: VecSimMetric, tile_n: int, group_n: int,
+                         query_norms: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of K1, on any device: chunked ``scores_float``
+    / ``scores_int`` and an ``amin`` over the strided group view."""
     metric = VecSimMetric(metric)
     B = queries.shape[0]
     N = data.shape[0]
@@ -188,23 +307,52 @@ def group_min_scores_ref(queries: torch.Tensor, data: torch.Tensor,
     for t0 in range(0, n_tiles, step):
         t1 = min(t0 + step, n_tiles)
         lo, hi = t0 * tile_n, t1 * tile_n
-        sqn = None if metric != VecSimMetric.L2 else sqnorms[lo:hi]
-        s = scores_float(queries, data[lo:hi], metric, sqn)
-        rows = torch.arange(lo, hi, device=data.device)
-        s = torch.where(rows[None, :] < count, s, float("inf"))
+        s = _masked(_scores(queries, data, sqnorms, metric, query_norms, lo, hi), lo, count)
         # Row t*tile_n + l*G + g of the chunk is element [t, l, g].
         out[:, t0:t1] = s.view(B, t1 - t0, L, G).amin(dim=2)
     return out.view(B, n_tiles * G)
 
 
-# ---------------------------------------------------------------------------
-# Host part: suspect rescue, coverage flag, exact fallback
-# ---------------------------------------------------------------------------
+def _rescore_members(queries, data, sqnorms, mem, metric, query_norms):
+    """Exact distances [B, C] of each query to its own member rows ``mem``
+    [B, C], by the streaming engine's formulas (``scores_float`` /
+    ``scores_int``), so that a covered answer is the streaming engine's.
+
+    Integer stores go through fp64 (every partial sum is an integer below
+    2^53, so any summation order is exact), a few queries at a time: the
+    gathered [B, C, D] members of a 1024-query batch would take gigabytes in
+    fp64 at once.
+    """
+    if data.dtype.is_floating_point:
+        qf = queries.float()
+        ip = torch.bmm(data[mem].float(), qf[:, :, None])[:, :, 0]
+        if metric != VecSimMetric.L2:
+            return 1.0 - ip
+        return torch.sum(qf * qf, dim=1, keepdim=True) - 2.0 * ip + sqnorms[mem]
+    B, C = mem.shape
+    out = torch.empty((B, C), dtype=torch.float32, device=data.device)
+    step = max(1, (1 << 25) // (C * data.shape[1]))  # ~256 MB of fp64 members
+    for b0 in range(0, B, step):
+        m = mem[b0:b0 + step]
+        rows = data[m].to(torch.float64)
+        q64 = queries[b0:b0 + step].to(torch.float64)
+        ip = torch.bmm(rows, q64[:, :, None])[:, :, 0].to(torch.int64)
+        if metric == VecSimMetric.IP:
+            d = 1.0 - ip.to(torch.float32)
+        elif metric == VecSimMetric.Cosine:
+            d = 1.0 - ip.to(torch.float32) / (query_norms[b0:b0 + step, None] * sqnorms[m])
+        else:
+            q_sq = torch.sum(q64 * q64, dim=1, keepdim=True).to(torch.int64)
+            d_sq = torch.sum(rows * rows, dim=2).to(torch.int64)
+            d = (q_sq - 2 * ip + d_sq).to(torch.float32)
+        out[b0:b0 + step] = d
+    return out
 
 
 def topk_gm(queries: torch.Tensor, data: torch.Tensor, sqnorms: Optional[torch.Tensor],
             count: int, k: int, *, metric: VecSimMetric, tile_n: int = 4096,
-            group_n: int = 256, slack: int = 8):
+            group_n: int = 256, slack: int = 8,
+            query_norms: Optional[torch.Tensor] = None):
     """Top-k via group minima + exact suspect rescue.
 
     Returns (dists [B, k], ids [B, k], uncovered [B] bool). ``uncovered``
@@ -222,8 +370,8 @@ def topk_gm(queries: torch.Tensor, data: torch.Tensor, sqnorms: Optional[torch.T
     S = min(k + slack, T - 2)
     if S < k:
         raise ValueError(f"too few groups (T={T}) for k={k}: gate this shape off")
-    gm = group_min_scores(queries, data, sqnorms, count,
-                          metric=metric, tile_n=tile_n, group_n=group_n)
+    gm = group_min_scores(queries, data, sqnorms, count, metric=metric, tile_n=tile_n,
+                          group_n=group_n, query_norms=query_norms)
     gvals, gpos = _lex_topk(gm, S + 1)  # [B, S+1] smallest group minima
     m_next = gvals[:, S]  # first UNSELECTED group's min (coverage bound)
     sus = gpos[:, :S]  # flat group index t = tile*G + g
@@ -232,30 +380,29 @@ def topk_gm(queries: torch.Tensor, data: torch.Tensor, sqnorms: Optional[torch.T
     lane = torch.arange(L, device=data.device, dtype=torch.int64) * G
     mem = ((sus // G) * tile_n + sus % G)[:, :, None] + lane
     mem = torch.sort(mem.reshape(B, S * L), dim=1).values
-    rows = data[mem]  # [B, S*L, D] gather
-    ip = torch.bmm(rows, queries[:, :, None])[:, :, 0]
-    if metric == VecSimMetric.L2:
-        qsq = torch.sum(queries * queries, dim=1, keepdim=True)
-        d = qsq - 2.0 * ip + sqnorms[mem]
-    else:
-        d = 1.0 - ip
+    d = _rescore_members(queries, data, sqnorms, mem, metric, query_norms)
     d = torch.where(mem < count, d, float("inf"))
     vals, pos = _lex_topk(d, k)
     ids = torch.gather(mem, 1, pos)
     ids = torch.where(torch.isfinite(vals), ids, -1)
-    # Coverage: the k-th best must beat every unselected group's minimum by
-    # eps, which covers the kernel-vs-rescore fp32 summation-order skew (see
-    # the precision note in csrc/bf_topk_gm.cu).
+    # Coverage: the k-th best must beat every unselected group's minimum. The
+    # float lanes guard the kernel-vs-rescore fp32 summation-order skew by
+    # eps (see the precision note in csrc/bf_topk_gm.cu); the integer lanes
+    # are exact on both sides and need none.
     kth = vals[:, k - 1]
-    eps = 1e-5 * torch.clamp(torch.maximum(kth.abs(), m_next.abs()), min=1.0)
+    if data.dtype.is_floating_point:
+        eps = 1e-5 * torch.clamp(torch.maximum(kth.abs(), m_next.abs()), min=1.0)
+    else:
+        eps = 0.0
     uncovered = ~(kth < m_next - eps)
     return vals, ids, uncovered
 
 
 def topk_gm_exact(queries: torch.Tensor, data: torch.Tensor,
                   sqnorms: Optional[torch.Tensor], count: int, k: int, *,
-                  metric: VecSimMetric, tile_n: int = 4096, group_n: int = 256,
-                  slack: int = 8, chunk: int = 1 << 16):
+                  metric: VecSimMetric, kind: str, tile_n: int = 4096, group_n: int = 256,
+                  slack: int = 8, chunk: int = 1 << 16,
+                  query_norms: Optional[torch.Tensor] = None):
     """Group-min engine, unconditionally exact: a batch with any uncovered
     query is answered by ``streaming_topk`` (``topk_gm_exact.fallbacks``
     counts those batches).
@@ -265,12 +412,242 @@ def topk_gm_exact(queries: torch.Tensor, data: torch.Tensor,
     consecutive batches from overlapping.
     """
     vals, ids, uncovered = topk_gm(queries, data, sqnorms, count, k, metric=metric,
-                                   tile_n=tile_n, group_n=group_n, slack=slack)
+                                   tile_n=tile_n, group_n=group_n, slack=slack,
+                                   query_norms=query_norms)
     if bool(uncovered.any()):
         topk_gm_exact.fallbacks += 1
         return streaming_topk(queries, (data, sqnorms), count, k, metric=metric,
-                              kind="float", chunk=chunk)
+                              kind=kind, chunk=chunk, query_norms=query_norms)
     return vals, ids
 
 
 topk_gm_exact.fallbacks = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: fused top-k
+# ---------------------------------------------------------------------------
+
+
+def _check_lo(lo, queries) -> None:
+    if lo is None:
+        return
+    lo_d, lo_i = lo
+    B = queries.shape[0]
+    if tuple(lo_d.shape) != (B,) or tuple(lo_i.shape) != (B,):
+        raise ValueError("the lower bound is a pair of [B] tensors")
+    if lo_d.dtype != torch.float32 or lo_i.dtype != torch.int32:
+        raise TypeError("the lower bound is (float32 distances, int32 ids)")
+    for t in lo:
+        if not t.is_contiguous() or t.device != queries.device:
+            raise ValueError("the lower bound must be contiguous, on the queries' device")
+
+
+def _fused_ranges(B: int, N: int) -> tuple:
+    """(rows per range, number of ranges) of a fused launch: enough blocks
+    to fill the card, ranges a whole number of the kernel's 128-row
+    sub-tiles."""
+    want = max(1, -(-_FUSED_BLOCKS // -(-B // _FUSED_BM)))
+    rows = max(_FUSED_MIN_ROWS, -(-N // want))
+    rows = -(-rows // 128) * 128
+    return rows, -(-N // rows)
+
+
+def fused_topk(queries: torch.Tensor, data: torch.Tensor, sqnorms: Optional[torch.Tensor],
+               count: int, k: int, *, metric: VecSimMetric, lo: Optional[tuple] = None,
+               query_norms: Optional[torch.Tensor] = None):
+    """One pass of the fused kernel: the exact k <= 128 smallest (distance,
+    id) per query in lexicographic order over rows < count, as (dists [B, k]
+    fp32, ids [B, k] int32), unfilled slots (+inf, -1). With ``lo`` = (lo_d
+    [B] fp32, lo_i [B] int32) only pairs lex-greater than a query's bound
+    count.
+
+    CUDA tensors launch the kernel, which writes one sorted list per query
+    and row range; the lists of a query are merged here with one exact
+    top-k (``fused_topk.launches`` counts the launches). CPU tensors take
+    ``fused_topk_ref``; anything else raises.
+    """
+    metric = VecSimMetric(metric)
+    _check(queries, data, sqnorms, metric, query_norms)
+    _check_lo(lo, queries)
+    if not 0 < k <= PASS_K:
+        raise ValueError(f"one fused pass takes 0 < k <= {PASS_K}, got {k}")
+    if data.device.type == "cpu":
+        return fused_topk_ref(queries, data, sqnorms, count, k, metric=metric, lo=lo,
+                              query_norms=query_norms)
+    B, D = queries.shape
+    N = data.shape[0]
+    rows, n_ranges = _fused_ranges(B, N)
+    qf, qi, rf = _lane_aux(queries, sqnorms, metric, query_norms)
+    lo_d, lo_i = lo if lo is not None else (None, None)
+    part_d = torch.empty((B, n_ranges, k), dtype=torch.float32, device=data.device)
+    part_i = torch.empty((B, n_ranges, k), dtype=torch.int32, device=data.device)
+    _run(fused_topk, "bf_topk_fused", data, lambda kern, stream: kern.fused(
+        queries.data_ptr(), data.data_ptr(), _ptr(qf), _ptr(qi), _ptr(rf), _ptr(lo_d),
+        _ptr(lo_i), part_d.data_ptr(), part_i.data_ptr(), _LANES[data.dtype], B, D, N,
+        rows, n_ranges, k, min(int(count), N), int(metric), stream))
+    # Lists are lex-sorted and ranges are in id order, so _lex_topk's
+    # lower-position rule on equal distances is the lower-id rule.
+    vals, pos = _lex_topk(part_d.view(B, n_ranges * k), k)
+    return vals, torch.gather(part_i.view(B, n_ranges * k), 1, pos)
+
+
+fused_topk.launches = 0
+
+
+def fused_topk_ref(queries: torch.Tensor, data: torch.Tensor,
+                   sqnorms: Optional[torch.Tensor], count: int, k: int, *,
+                   metric: VecSimMetric, lo: Optional[tuple] = None,
+                   query_norms: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of K3, on any device: chunked scores, the count
+    mask, the lower bound, and a running exact top-k."""
+    metric = VecSimMetric(metric)
+    B = queries.shape[0]
+    N = data.shape[0]
+    best_d = torch.full((B, k), float("inf"), dtype=torch.float32, device=data.device)
+    best_i = torch.full((B, k), -1, dtype=torch.int64, device=data.device)
+    step = max(k, (1 << 26) // max(B, 1))  # rows per ~256 MB of scores
+    for r0 in range(0, min(N, max(int(count), 0)), step):
+        r1 = min(r0 + step, N)
+        s = _masked(_scores(queries, data, sqnorms, metric, query_norms, r0, r1), r0, count)
+        if lo is not None:
+            ids = torch.arange(r0, r1, device=data.device)[None, :]
+            lo_d, lo_i = lo[0][:, None], lo[1][:, None]
+            s = torch.where((s > lo_d) | ((s == lo_d) & (ids > lo_i)), s, float("inf"))
+        vals, pos = _lex_topk(s, min(k, r1 - r0))
+        best_d, best_i = _merge_topk(best_d, best_i, vals, pos + r0, k)
+    best_i = torch.where(torch.isfinite(best_d), best_i, -1)
+    return best_d, best_i.to(torch.int32)
+
+
+def topk_fused(queries: torch.Tensor, data: torch.Tensor, sqnorms: Optional[torch.Tensor],
+               count: int, k: int, *, metric: VecSimMetric,
+               query_norms: Optional[torch.Tensor] = None):
+    """Exact top-k with the fused scan: (dists [B, k] fp32, ids [B, k]
+    int64) sorted ascending, unfilled slots (+inf, -1). k > 128 runs
+    ceil(k / 128) passes, each excluding everything lexicographically <= the
+    last (distance, id) of the pass before: exact because every pass selects
+    in (distance, id) order on the same scores."""
+    n_passes = -(-k // PASS_K)
+    pass_k = k if n_passes == 1 else PASS_K
+    parts_d, parts_i = [], []
+    for _ in range(n_passes):
+        lo = (parts_d[-1][:, -1].contiguous(), parts_i[-1][:, -1].contiguous()) if parts_d else None
+        pd, pi = fused_topk(queries, data, sqnorms, count, pass_k, metric=metric, lo=lo,
+                            query_norms=query_norms)
+        parts_d.append(pd)
+        parts_i.append(pi)
+    out_d = torch.cat(parts_d, dim=1)[:, :k]
+    out_i = torch.cat(parts_i, dim=1)[:, :k].to(torch.int64)
+    return out_d, torch.where(torch.isfinite(out_d), out_i, -1)
+
+
+# ---------------------------------------------------------------------------
+# K4: per-tile local top-c (large k)
+# ---------------------------------------------------------------------------
+
+
+def tile_topc(queries: torch.Tensor, data: torch.Tensor, sqnorms: Optional[torch.Tensor],
+              count: int, *, metric: VecSimMetric, tile_n: int, c: int,
+              query_norms: Optional[torch.Tensor] = None):
+    """Each tile's c smallest (distance, id) per query in lexicographic
+    order: (local_d [B, n_tiles, c] fp32, local_i [B, n_tiles, c] int32),
+    rows >= count at +inf, unfilled slots (+inf, -1).
+
+    CUDA tensors launch the kernel (``tile_topc.launches`` counts the
+    launches); CPU tensors take ``tile_topc_ref``; anything else raises.
+    """
+    metric = VecSimMetric(metric)
+    _check(queries, data, sqnorms, metric, query_norms)
+    n_tiles = _check_tiles(data, tile_n)
+    if not 0 < c <= min(MAX_C, tile_n):
+        raise ValueError(f"the top-c kernel takes 0 < c <= min({MAX_C}, tile_n), got {c}")
+    if data.device.type == "cpu":
+        return tile_topc_ref(queries, data, sqnorms, count, metric=metric, tile_n=tile_n, c=c,
+                             query_norms=query_norms)
+    B, D = queries.shape
+    qf, qi, rf = _lane_aux(queries, sqnorms, metric, query_norms)
+    local_d = torch.empty((B, n_tiles, c), dtype=torch.float32, device=data.device)
+    local_i = torch.empty((B, n_tiles, c), dtype=torch.int32, device=data.device)
+    _run(tile_topc, "bf_topk_topc", data, lambda kern, stream: kern.topc(
+        queries.data_ptr(), data.data_ptr(), _ptr(qf), _ptr(qi), _ptr(rf), local_d.data_ptr(),
+        local_i.data_ptr(), _LANES[data.dtype], B, D, n_tiles, tile_n, c,
+        min(int(count), data.shape[0]), int(metric), stream))
+    return local_d, local_i
+
+
+tile_topc.launches = 0
+
+
+def tile_topc_ref(queries: torch.Tensor, data: torch.Tensor, sqnorms: Optional[torch.Tensor],
+                  count: int, *, metric: VecSimMetric, tile_n: int, c: int,
+                  query_norms: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of K4, on any device: chunked scores and an
+    exact top-c over each tile."""
+    metric = VecSimMetric(metric)
+    B = queries.shape[0]
+    n_tiles = data.shape[0] // tile_n
+    local_d = torch.empty((B, n_tiles, c), dtype=torch.float32, device=data.device)
+    local_i = torch.empty((B, n_tiles, c), dtype=torch.int32, device=data.device)
+    step = max(1, (1 << 26) // max(B * tile_n, 1))  # tiles per ~256 MB of scores
+    for t0 in range(0, n_tiles, step):
+        t1 = min(t0 + step, n_tiles)
+        lo, hi = t0 * tile_n, t1 * tile_n
+        s = _masked(_scores(queries, data, sqnorms, metric, query_norms, lo, hi), lo, count)
+        vals, pos = _lex_topk(s.view(B * (t1 - t0), tile_n), c)
+        base = torch.arange(t0, t1, device=data.device).repeat(B)[:, None] * tile_n
+        ids = torch.where(torch.isfinite(vals), pos + base, -1)
+        local_d[:, t0:t1] = vals.view(B, t1 - t0, c)
+        local_i[:, t0:t1] = ids.view(B, t1 - t0, c).to(torch.int32)
+    return local_d, local_i
+
+
+def topk_bigk(queries: torch.Tensor, data: torch.Tensor, sqnorms: Optional[torch.Tensor],
+              count: int, k: int, *, metric: VecSimMetric, tile_n: int = 4096,
+              local_c: int = 32, query_norms: Optional[torch.Tensor] = None):
+    """Top-k for large k via per-tile local top-c + one exact merge.
+
+    Returns (dists [B, k], ids [B, k] int64, truncated [B] bool).
+    ``truncated`` True means a tile filled all ``local_c`` slots inside the
+    global top-k and may be hiding more: the caller must answer that batch
+    from an exact path. Tie order is (distance, lower id): a tile's list is
+    lex-sorted and the flat survivor positions are in id order, which
+    ``_lex_topk`` keeps (``torch.topk`` promises no tie order).
+    """
+    B = queries.shape[0]
+    n_tiles = data.shape[0] // tile_n
+    c = min(local_c, tile_n)
+    if n_tiles * c < k:
+        raise ValueError(f"raise local_c: {n_tiles} tiles of {c} survivors cannot cover k={k}")
+    local_d, local_i = tile_topc(queries, data, sqnorms, count, metric=metric, tile_n=tile_n,
+                                 c=c, query_norms=query_norms)
+    vals, pos = _lex_topk(local_d.view(B, n_tiles * c), k)
+    ids = torch.gather(local_i.view(B, n_tiles * c), 1, pos).to(torch.int64)
+    ids = torch.where(torch.isfinite(vals), ids, -1)
+    worst = local_d[:, :, c - 1]  # each tile's c-th best
+    truncated = ((worst <= vals[:, k - 1:k]) & torch.isfinite(worst)).any(dim=1)
+    return vals, ids, truncated
+
+
+def topk_bigk_exact(queries: torch.Tensor, data: torch.Tensor,
+                    sqnorms: Optional[torch.Tensor], count: int, k: int, *,
+                    metric: VecSimMetric, kind: str, tile_n: int = 4096, local_c: int = 32,
+                    chunk: int = 1 << 16, query_norms: Optional[torch.Tensor] = None):
+    """Big-k engine, unconditionally exact: a batch with any truncated query
+    is answered by ``streaming_topk`` (``topk_bigk_exact.fallbacks`` counts
+    those batches).
+
+    As in ``topk_gm_exact``, the flag is read on the host once per call (a
+    device sync); the JAX package keeps the choice on the device with
+    ``lax.cond``.
+    """
+    vals, ids, truncated = topk_bigk(queries, data, sqnorms, count, k, metric=metric,
+                                     tile_n=tile_n, local_c=local_c, query_norms=query_norms)
+    if bool(truncated.any()):
+        topk_bigk_exact.fallbacks += 1
+        return streaming_topk(queries, (data, sqnorms), count, k, metric=metric,
+                              kind=kind, chunk=chunk, query_norms=query_norms)
+    return vals, ids
+
+
+topk_bigk_exact.fallbacks = 0
