@@ -11,16 +11,20 @@ check:
    printing the build time and ptxas' registers and spills per kernel.
 2. Generate the headline store on the card: 1M x 768 fp32 embedding-like
    unit vectors from a seeded ``torch.Generator``, capacity 2^20.
-3. Hold the group-min kernel's fp32 lane against its plain PyTorch version on
-   the card at small odd shapes (count off the tile grid, B = 1, 7, 1024,
+3. Hold the group-min kernels' fp32 lane against the plain PyTorch version
+   on the card at small odd shapes (count off the tile grid, B = 1, 7, 1024,
    every metric, a dim that is not a multiple of 4): group minima within 1e-5
-   absolute, +inf at the same places.
-4. Hold every kernel (group-min K1, fused top-k K3, per-tile top-c K4) in
-   every lane (fp32, bf16, fp16, int8, uint8) against its plain version at
-   small odd shapes: B = 1, 7, 130, count off the grid, k > count, dims that
-   are not multiples of 4 or 16, all three metrics. Float lanes within 1e-5
-   with ids equal except at near-ties; integer lanes equal (Cosine, which
-   rounds one fp32 divide, within 1e-6).
+   absolute, +inf at the same places. K1 has two kernels, the tensor-core
+   one (`bf_topk_gm_tc.cu`) for the shapes `config.gm_tc_ok` admits and the
+   CUDA-core one (`bf_topk_gm.cu`) for the rest; each shape asserts which
+   launch counter moved.
+4. Hold every kernel (both K1s, fused top-k K3, per-tile top-c K4) in every
+   lane (fp32, bf16, fp16, int8, uint8) against its plain version at small
+   odd shapes: B = 1, 7, 130, count off the grid, k > count, dims that are
+   not multiples of 4 or 16 (D = 37 and 40 go to the CUDA-core K1 in int8),
+   all three metrics. Float lanes within 1e-5 with ids equal except at
+   near-ties; integer lanes equal (Cosine, which rounds one fp32 divide,
+   within 1e-6).
 5. The main path at full width, once per store type. The fp32 store is
    adopted into the port's ``BruteForceIndex`` (built with no ``device``, so
    on the card); then a float16, a bfloat16, an int8 and a uint8 store of the
@@ -28,10 +32,15 @@ check:
    With every launch and fallback count set to 0 just before,
    ``topk_query_batch`` (host API) and ``search_knn_device`` (B = 1024) run
    at k = 10 (group-min), k = 100 (fused) and k = 500 (top-c); each engine's
-   kernel must have launched and no fallback may have run; 32 queries per k
-   are held against an exact float64 ground truth. Then each kernel is held
-   against its plain version at the full-width shape and both are timed, and
-   the QPS of ``search_knn_device`` is taken per k.
+   kernel must have launched (at k = 10 the tensor-core K1, and the
+   CUDA-core K1 never) and no fallback may have run; 32 queries per k are
+   held against an exact float64 ground truth. Then each kernel is held
+   against its plain version at the full-width shape and both are timed,
+   beside the bare product at the same shape (``product_ms``:
+   ``torch.matmul`` with TF32 off, or ``torch._int_mm``; none for uint8).
+   The CUDA-core K1 is timed at the same size with rows cut to a width the
+   tensor-core gate refuses (``CC_DIM``), the shapes it serves. The QPS of
+   ``search_knn_device`` is taken per k.
 6. An all-ties store must trip the group-min fallback, and a store with all
    near rows in one tile must trip the top-c truncation fallback; both must
    still answer exactly.
@@ -68,11 +77,22 @@ LANES = ("f32", "f16", "bf16", "s8", "u8")
 DTYPES = {"f32": torch.float32, "f16": torch.float16, "bf16": torch.bfloat16,
           "s8": torch.int8, "u8": torch.uint8}
 VTYPES = {"f32": "FLOAT32", "f16": "FLOAT16", "bf16": "BFLOAT16", "s8": "INT8", "u8": "UINT8"}
-# Published dense peaks of one H100 SXM for each lane's type (operations per
-# second) and its memory rate (bytes per second).
-PEAK_OPS = {"f32": 67e12, "f16": 989e12, "bf16": 989e12, "s8": 1979e12, "u8": 1979e12}
+# Published dense tensor-core peaks of one H100 SXM (operations per second)
+# and its memory rate (bytes per second). fp32 scoring on a matrix unit is
+# three low-precision passes; the least time is the TPU reference's own
+# scheme, bf16_3x, 3 x 2BND operations at the bf16 peak. The tensor-core K1
+# runs 3xTF32 (at half that rate); its figure is printed on a line beside.
+PEAK_OPS = {"f32": 989e12, "f16": 989e12, "bf16": 989e12, "s8": 1979e12, "u8": 1979e12}
+PASSES = {"f32": 3, "f16": 1, "bf16": 1, "s8": 1, "u8": 1}
+TF32_PEAK = 495e12
 PEAK_BYTES = 3.35e12
-KERNELS = {  # wrapper name -> (C entry point, source, TPU kernel it replaces)
+# Row width at which the CUDA-core K1 is timed at full width: the widest
+# below the headline's 768 that the tensor-core gate refuses (a row not a
+# multiple of 16 bytes), and for int8 one torch._int_mm takes (a multiple of 8).
+CC_DIM = {"f32": 767, "f16": 767, "bf16": 767, "s8": 760, "u8": 760}
+KERNELS = {  # kernel -> (C entry point, source, TPU kernel it replaces)
+    "gm_tc": ("bf_topk_gm_tc", "vectorsimilarity_tpu_torch/csrc/bf_topk_gm_tc.cu",
+              "vectorsimilarity_tpu/ops/pallas/bf_topk.py:509"),
     "gm": ("bf_topk_gm", "vectorsimilarity_tpu_torch/csrc/bf_topk_gm.cu",
            "vectorsimilarity_tpu/ops/pallas/bf_topk.py:509"),
     "fused": ("bf_topk_fused", "vectorsimilarity_tpu_torch/csrc/bf_topk_fused.cu",
@@ -98,6 +118,15 @@ LANE_SHAPES = [
     (1, 4096, 37, 3001, 1024, 256, 32, 100),
     (7, 2048, 40, 50, 512, 128, 16, 64),
     (130, 3072, 64, 3000, 64, 16, 64, 128),
+]
+# (B, N, dim, count, tile_n, group_n) — group-min shapes every lane's
+# tensor-core K1 takes: B = 1, 7, 130, counts off the grid, G below and
+# above the kernel's 128 columns, the headline dim.
+GM_TC_SHAPES = [
+    (1, 8192, 768, 7001, 4096, 256),
+    (7, 4096, 96, 3999, 1024, 256),
+    (130, 2048, 48, 2000, 512, 128),
+    (130, 1024, 768, 1000, 128, 16),
 ]
 
 
@@ -181,8 +210,11 @@ def phase_build():
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                lane = re.search(r"Lane(\w+?)ELb([01])", m.group(1))
-                entry = f"{lane.group(1)} vec={lane.group(2)}" if lane else m.group(1)
+                name = m.group(1)
+                lane = re.search(r"Lane(\w+?)EL([bi])(\d)", name)
+                entry = (f"{lane.group(1)} {'vec' if lane.group(2) == 'b' else 'metric'}="
+                         f"{lane.group(3)}" if lane else
+                         "row_sumsq" if "row_sumsq" in name else name)
                 spills = ""
             elif "spill" in line:
                 spills = line.strip()
@@ -192,46 +224,63 @@ def phase_build():
                 entry = None
 
 
+def gm_checked(q, x, aux, count, want=None, **kw):
+    """group_min_scores through the wrapper, asserting that the kernel the
+    gate names (and ``want``, if given) launched once and the other not at
+    all. Returns (gm, which kernel: "gm_tc" or "gm")."""
+    from vectorsimilarity_tpu_torch.ops.kernels import bf_topk as bfk
+
+    w = bfk.group_min_scores
+    before = (w.tc_launches, w.launches)
+    out = w(q, x, aux, count, **kw)
+    which = "gm_tc" if bfk.gm_tc_admits(q, x) else "gm"
+    moved = (w.tc_launches - before[0], w.launches - before[1])
+    if moved != ((1, 0) if which == "gm_tc" else (0, 1)) or want not in (None, which):
+        raise AssertionError(f"{tuple(x.shape)} {x.dtype}: launches moved {moved}, want "
+                             f"{want or which}")
+    return out, which
+
+
 def check_kernel(dev, shapes):
-    """The group-min kernel's fp32 lane vs its plain version on each shape;
-    returns the max abs error over all shapes."""
+    """The group-min kernels' fp32 lane vs the plain version on each shape;
+    returns {kernel: max abs error} over all shapes."""
     from vectorsimilarity_tpu_torch.ops.kernels import bf_topk as bfk
     from vectorsimilarity_tpu_torch.types import VecSimMetric
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    worst = 0.0
+    worst = {"gm": 0.0, "gm_tc": 0.0}
     for B, tiles, tile_n, group_n, dim, count, mname in shapes:
         metric = VecSimMetric[mname]
         data = _unit_rows(gen, tiles * tile_n, dim, dev)
         q = _unit_rows(gen, B, dim, dev)
         sqn = torch.sum(data * data, dim=1) if metric == VecSimMetric.L2 else None
         kw = dict(metric=metric, tile_n=tile_n, group_n=group_n)
-        got = bfk.group_min_scores(q, data, sqn, count, **kw)
+        got, which = gm_checked(q, data, sqn, count, **kw)
         ref = bfk.group_min_scores_ref(q, data, sqn, count, **kw)
         torch.cuda.synchronize()
         err, rel = gm_error(got, ref)
-        print(f"# gm f32 vs plain B={B} N={data.shape[0]} D={dim} count={count} "
+        print(f"# {KERNELS[which][0]} f32 vs plain B={B} N={data.shape[0]} D={dim} count={count} "
               f"tile_n={tile_n} G={group_n} {mname}: max abs err {err:.3e} (rel {rel:.3e})",
               flush=True)
         if not err <= TOL:
             raise AssertionError(f"kernel disagrees with its plain version: {err:.3e}")
-        worst = max(worst, err)
+        worst[which] = max(worst[which], err)
     return worst
 
 
 def one_query(store, queries, smi):
-    """The group-min kernel's fp32 lane at the headline store with B = 1 (a
+    """The tensor-core K1's fp32 lane at the headline store with B = 1 (a
     block of 128 queries holds one): error vs plain, and both times."""
     from vectorsimilarity_tpu_torch.ops.kernels import bf_topk as bfk
     from vectorsimilarity_tpu_torch.types import VecSimMetric
 
     q = queries[:1].contiguous()
     kw = dict(metric=VecSimMetric.Cosine, tile_n=TILE_N, group_n=GROUP_N)
-    err, _ = gm_error(bfk.group_min_scores(q, store, None, N, **kw),
+    err, _ = gm_error(gm_checked(q, store, None, N, **kw)[0],
                       bfk.group_min_scores_ref(q, store, None, N, **kw))
     ms = time_ms(lambda: bfk.group_min_scores(q, store, None, N, **kw), 5)
     plain_ms = time_ms(lambda: bfk.group_min_scores_ref(q, store, None, N, **kw), 5)
-    print(f"# bf_topk_gm_f32 vs plain at {N} x {DIM}, B=1: max abs err {err:.3e}, kernel "
+    print(f"# bf_topk_gm_tc_f32 vs plain at {N} x {DIM}, B=1: max abs err {err:.3e}, kernel "
           f"{ms:.3f} ms, plain {plain_ms:.3f} ms; card {smi}", flush=True)
     if not err <= TOL:
         raise AssertionError(f"kernel disagrees with its plain version: {err:.3e}")
@@ -261,19 +310,25 @@ def check_lanes(dev):
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     worst = {(k, lane): 0.0 for k in KERNELS for lane in LANES}
+    gm_shapes = [(B, n, dim, count, tile_n, group_n) for B, n, dim, count, tile_n, group_n, _, _
+                 in LANE_SHAPES] + GM_TC_SHAPES
     for lane in LANES:
         for mname in ("L2", "IP", "Cosine"):
             tol = lane_tol(lane, mname)
-            for B, n, dim, count, tile_n, group_n, c, k in LANE_SHAPES:
+            for B, n, dim, count, tile_n, group_n in gm_shapes:
                 q, x, aux, qn = lane_case(dev, gen, lane, mname, B, n, dim)
                 kw = dict(metric=VecSimMetric[mname], query_norms=qn)
-                got = bfk.group_min_scores(q, x, aux, count, tile_n=tile_n, group_n=group_n, **kw)
+                got, which = gm_checked(q, x, aux, count, tile_n=tile_n, group_n=group_n, **kw)
                 ref = bfk.group_min_scores_ref(q, x, aux, count, tile_n=tile_n, group_n=group_n,
                                                **kw)
                 err, _ = gm_error(got, ref)
                 if not err <= tol:
-                    raise AssertionError(f"gm {lane} {mname} B={B}: err {err:.3e} > {tol}")
-                worst["gm", lane] = max(worst["gm", lane], err)
+                    raise AssertionError(f"{which} {lane} {mname} B={B} D={dim}: err {err:.3e} > "
+                                         f"{tol}")
+                worst[which, lane] = max(worst[which, lane], err)
+            for B, n, dim, count, tile_n, group_n, c, k in LANE_SHAPES:
+                q, x, aux, qn = lane_case(dev, gen, lane, mname, B, n, dim)
+                kw = dict(metric=VecSimMetric[mname], query_norms=qn)
                 got = bfk.fused_topk(q, x, aux, count, k, **kw)
                 ref = bfk.fused_topk_ref(q, x, aux, count, k, **kw)
                 worst["fused", lane] = max(worst["fused", lane], lists_error(got, ref, tol))
@@ -283,8 +338,9 @@ def check_lanes(dev):
                 worst["topc", lane] = max(worst["topc", lane],
                                           lists_error(flat(got), flat(ref), tol))
         torch.cuda.synchronize()
-        print(f"# {lane}: gm, fused, topc vs plain at {len(LANE_SHAPES)} odd shapes x 3 metrics: "
-              f"max abs err {worst['gm', lane]:.3e}, {worst['fused', lane]:.3e}, "
+        print(f"# {lane}: gm_tc, gm, fused, topc vs plain at {len(gm_shapes)} (K1) and "
+              f"{len(LANE_SHAPES)} odd shapes x 3 metrics: max abs err "
+              f"{worst['gm_tc', lane]:.3e}, {worst['gm', lane]:.3e}, {worst['fused', lane]:.3e}, "
               f"{worst['topc', lane]:.3e}", flush=True)
     return worst
 
@@ -328,15 +384,37 @@ def assert_knn(d, i, rd, ri, s64):
         raise AssertionError("duplicate ids in a reply")
 
 
-def bound_ms(lane, out_bytes, aux_bytes=0):
+def bound_ms(lane, out_bytes, aux_bytes=0, dim=DIM):
     """(least ms the card could take, what bounds it) for scoring BATCH
-    queries against the N live rows in ``lane``: the larger of the bytes
-    moved once (queries, live rows, auxiliaries in; the result out) over the
-    memory rate and 2 B N D operations over the lane's peak rate."""
+    queries against the N live rows of ``dim`` in ``lane``: the larger of
+    the bytes moved once (queries, live rows, auxiliaries in; the result out)
+    over the memory rate and the lane's passes of 2 B N D operations over its
+    tensor-core peak."""
     esize = torch.empty((), dtype=DTYPES[lane]).element_size()
-    byte_ms = 1e3 * ((BATCH + N) * DIM * esize + aux_bytes + out_bytes) / PEAK_BYTES
-    op_ms = 1e3 * 2.0 * BATCH * N * DIM / PEAK_OPS[lane]
+    byte_ms = 1e3 * ((BATCH + N) * dim * esize + aux_bytes + out_bytes) / PEAK_BYTES
+    op_ms = 1e3 * PASSES[lane] * 2.0 * BATCH * N * dim / PEAK_OPS[lane]
     return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
+
+
+def int_norms(t):
+    """The stored norms of integer rows, as the index keeps them (fp32,
+    at least 1), computed in float64 a chunk at a time."""
+    return torch.cat([c.double().square().sum(1).float().sqrt().clamp(min=1.0)
+                      for c in t.split(1 << 17)])
+
+
+def product_ms(lane, queries, store):
+    """Time of the bare product queries [B, D] x store[:N]^T at the lane's
+    type, one PyTorch call (fp32 with TF32 off, as config.py pins it): the
+    yardstick for K1's tensor-core core. None for uint8 (no u8 product)."""
+    if lane == "u8":
+        return None
+    x = store[:N].t()
+    if lane == "s8":
+        return time_ms(lambda: torch._int_mm(queries, x), 3)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the fp32 product would not be fp32")
+    return time_ms(lambda: torch.matmul(queries, x), 3)
 
 
 def full_width(lane, store, norms, raw_queries, smi, small_err):
@@ -358,24 +436,28 @@ def full_width(lane, store, norms, raw_queries, smi, small_err):
     raw = raw_queries.float().cpu().numpy().astype(idx.np_dtype)
     host_queries = raw[:64]
     queries, qnorms = (idx.to_device(a) for a in idx.preprocess_queries(raw))
-    wrappers = {"gm": bfk.group_min_scores, "fused": bfk.fused_topk, "topc": bfk.tile_topc}
-    engine_of = dict(zip(KS, ("gm", "fused", "topc")))
+    counters = {"gm_tc": (bfk.group_min_scores, "tc_launches"),
+                "gm": (bfk.group_min_scores, "launches"),
+                "fused": (bfk.fused_topk, "launches"), "topc": (bfk.tile_topc, "launches")}
+    engine_of = dict(zip(KS, ("gm_tc", "fused", "topc")))
 
     # The main path, counts at 0 just before and read just after.
-    for w in wrappers.values():
-        w.launches = 0
+    for w, attr in counters.values():
+        setattr(w, attr, 0)
     bfk.topk_gm_exact.fallbacks = bfk.topk_bigk_exact.fallbacks = 0
     out = {}
     for k in KS:
         out[k] = (idx.topk_query_batch(host_queries, k), idx.search_knn_device(queries, k,
                                                                                qn=qnorms))
     torch.cuda.synchronize()
-    launches = {name: w.launches for name, w in wrappers.items()}
-    fallbacks = {"gm": bfk.topk_gm_exact.fallbacks, "fused": 0,
+    launches = {name: getattr(w, attr) for name, (w, attr) in counters.items()}
+    fallbacks = {"gm_tc": bfk.topk_gm_exact.fallbacks, "gm": 0, "fused": 0,
                  "topc": bfk.topk_bigk_exact.fallbacks}
     print(f"# main path {lane}: launches {launches}, fallbacks {fallbacks}", flush=True)
-    if any(n < 2 for n in launches.values()):
+    if any(launches[e] < 2 for e in engine_of.values()):
         raise AssertionError("an engine of the main path did not launch its kernel")
+    if launches["gm"]:
+        raise AssertionError("the main path ran the CUDA-core K1, not the tensor-core one")
     if any(fallbacks.values()):
         raise AssertionError("an exact fallback ran on random data")
 
@@ -399,10 +481,17 @@ def full_width(lane, store, norms, raw_queries, smi, small_err):
     gm_kw = dict(tile_n=TILE_N, group_n=GROUP_N, **kw)
     topc_kw = dict(tile_n=TILE_N, c=LOCAL_C, **kw)
     flat = lambda pair: tuple(t.reshape(-1, LOCAL_C) for t in pair)
+    gm_cmp = lambda got, ref: gm_error(got, ref)[0]
+    # The CUDA-core K1's shape: the same rows and queries cut to CC_DIM.
+    cut = lambda t: t[:, :CC_DIM[lane]].contiguous()
+    cq, cx = cut(queries), cut(store)
+    cn, cqn = (None, None) if norms is None else (int_norms(cx), int_norms(cq))
+    cc_kw = dict(gm_kw, query_norms=cqn)
     calls = {
-        "gm": (lambda: bfk.group_min_scores(queries, store, norms, N, **gm_kw),
-               lambda: bfk.group_min_scores_ref(queries, store, norms, N, **gm_kw),
-               lambda got, ref: gm_error(got, ref)[0]),
+        "gm_tc": (lambda: gm_checked(queries, store, norms, N, "gm_tc", **gm_kw)[0],
+                  lambda: bfk.group_min_scores_ref(queries, store, norms, N, **gm_kw), gm_cmp),
+        "gm": (lambda: gm_checked(cq, cx, cn, N, "gm", **cc_kw)[0],
+               lambda: bfk.group_min_scores_ref(cq, cx, cn, N, **cc_kw), gm_cmp),
         "fused": (lambda: bfk.fused_topk(queries, store, norms, N, KS[1], **kw),
                   lambda: bfk.fused_topk_ref(queries, store, norms, N, KS[1], **kw),
                   lambda got, ref: lists_error(got, ref, tol)),
@@ -410,31 +499,43 @@ def full_width(lane, store, norms, raw_queries, smi, small_err):
                  lambda: bfk.tile_topc_ref(queries, store, norms, N, **topc_kw),
                  lambda got, ref: lists_error(flat(got), flat(ref), tol)),
     }
-    out_bytes = {"gm": BATCH * (CAP // TILE_N) * GROUP_N * 4, "fused": BATCH * KS[1] * 8,
+    gm_out = BATCH * (CAP // TILE_N) * GROUP_N * 4
+    out_bytes = {"gm_tc": gm_out, "gm": gm_out, "fused": BATCH * KS[1] * 8,
                  "topc": BATCH * (CAP // TILE_N) * LOCAL_C * 8}
     aux_bytes = 0 if norms is None else (N + BATCH) * 4
-    rows = []
+    dims = {name: CC_DIM[lane] if name == "gm" else DIM for name in calls}
+    prods = {DIM: product_ms(lane, queries, store), CC_DIM[lane]: product_ms(lane, cq, cx)}
+    if lane == "f32":
+        tf32_ms = 1e3 * PASSES[lane] * 2.0 * BATCH * N * DIM / TF32_PEAK
+        print(f"# f32 bound as the tensor-core K1's 3xTF32 (three passes at the TF32 peak): "
+              f"{tf32_ms:.3f} ms at {N} x {DIM}, B={BATCH}", flush=True)
+    rows = {}
     for name, (kernel, plain, compare) in calls.items():
         err = compare(kernel(), plain())
         if not err <= tol:
             raise AssertionError(f"{name} {lane}: kernel disagrees with plain: {err:.3e}")
         ms, plain_ms = time_ms(kernel, 3), time_ms(plain, 2)
-        least, by = bound_ms(lane, out_bytes[name], aux_bytes)
-        print(f"# {KERNELS[name][0]}_{lane} vs plain at {N} x {DIM}, B={BATCH}: max abs err "
-              f"{err:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {least:.3f} ms "
-              f"({by}); card {smi}", flush=True)
-        rows.append({
+        least, by = bound_ms(lane, out_bytes[name], aux_bytes, dims[name])
+        prod = prods[dims[name]]
+        row = {
             "name": f"{KERNELS[name][0]}_{lane}", "route": "cuda", "source": KERNELS[name][1],
             "replaces": KERNELS[name][2], "launches": launches[name],
             "max_abs_err": max(err, small_err[name, lane]), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": least, "bound_by": by, "library_ms": None,
+            "bound_ms": least, "bound_by": by, "library_ms": None, "product_ms": prod,
             "fallbacks": fallbacks[name],
-        })
+        }
+        print(f"# {row['name']} vs plain at {N} x {dims[name]}, B={BATCH}: max abs err "
+              f"{err:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {least:.3f} ms "
+              f"({by}), product {'none' if prod is None else f'{prod:.3f} ms'}; card {smi}",
+              flush=True)
+        rows[name] = row
+    del cq, cx, cn, cqn
 
     # QPS of the device path, one engine per k.
     staged = [queries, queries.flip(0).contiguous()]
     staged_qn = [qnorms, None if qnorms is None else qnorms.flip(0).contiguous()]
-    for k, row in zip(KS, rows):
+    for k in KS:
+        row = rows[engine_of[k]]
         rounds = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -447,7 +548,7 @@ def full_width(lane, store, norms, raw_queries, smi, small_err):
               f"({engine_of[k]}): {row['qps']:.1f} QPS (median of "
               f"{[round(r, 1) for r in rounds]}), {1000 * BATCH / row['qps']:.2f} ms per batch; "
               f"card {smi}", flush=True)
-    return rows
+    return list(rows.values())
 
 
 def phase_fallbacks(dev):
@@ -529,7 +630,9 @@ def main() -> int:
     # 3, 4. Kernels vs plain versions at small odd shapes.
     gm_small = check_kernel(dev, SMALL_SHAPES)
     small_err = check_lanes(dev)
-    small_err["gm", "f32"] = max(small_err["gm", "f32"], gm_small, one_query(store, queries, smi))
+    for name, err in gm_small.items():
+        small_err[name, "f32"] = max(small_err[name, "f32"], err)
+    small_err["gm_tc", "f32"] = max(small_err["gm_tc", "f32"], one_query(store, queries, smi))
 
     # 5. The main path at full width, one store type after another. The
     # integer stores hold the fp32 rows scaled to the int8 range (uint8:
@@ -537,8 +640,6 @@ def main() -> int:
     # index keeps for Cosine.
     scale = 127.0 / float(store.abs().max())
     quantize = lambda t, shift: (t * scale).round().clamp(-127, 127).add(shift)
-    int_norms = lambda t: torch.cat([c.double().square().sum(1).float().sqrt().clamp(min=1.0)
-                                     for c in t.split(1 << 17)])
     rows = []
     for lane in LANES:
         t0 = time.perf_counter()

@@ -8,10 +8,13 @@ no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_bf_topk_cuda.py -q
 
 (``--noconftest``: ``tests/conftest.py`` sets up JAX for the other files.)
-Float lanes: kernel and plain version both sum in fp32, in different orders,
-so distances agree within 1e-5 and ids except at near-ties. Integer lanes are
-exact on both sides: L2 and IP must be equal; Cosine rounds one fp32 divide
-and is held to 1e-6.
+Float lanes: kernel and plain version both sum in fp32, in different orders
+(the tensor-core K1's fp32 lane multiplies as a 3xTF32 split, within 2^-20
+relative of fp32 products), so distances agree within 1e-5 and ids except at
+near-ties. Integer lanes are exact on both sides: L2 and IP must be equal;
+Cosine rounds one fp32 divide and is held to 1e-6. K1 has two kernels: the
+tensor-core one where ``config.gm_tc_ok`` admits the shape, the CUDA-core
+one elsewhere; every K1 case checks which one launched.
 """
 
 import numpy as np
@@ -91,6 +94,19 @@ TOPC_SHAPES = [(37, 1024, 40, 64, 16, 1000), (1, 4096, 37, 1024, 32, 3001),
 # Fused top-k (B, N, D, count, k): N off the 128-row grid, k > count, k = 128.
 FUSED_SHAPES = [(37, 3000, 40, 2500, 100), (7, 2048, 37, 50, 64), (130, 5000, 64, 5000, 128),
                 (1, 70000, 48, 69999, 33)]
+# Group minima every lane's tensor-core K1 takes (B, N, D, tile_n, G, count):
+# B = 1, 7, 130, counts off the grid, G below and above its 128 columns.
+GM_TC_SHAPES = [(1, 8192, 768, 4096, 256, 7001), (7, 4096, 96, 1024, 256, 3999),
+                (130, 2048, 48, 512, 128, 2000), (130, 1024, 768, 128, 16, 1000)]
+
+
+def _gm_counts():
+    return bfk.group_min_scores.tc_launches, bfk.group_min_scores.launches
+
+
+def _gm_expect(lane, D):
+    """(tensor-core, CUDA-core) launches one K1 call must add."""
+    return (1, 0) if config.gm_tc_ok(D, _DTYPES[lane]) else (0, 1)
 
 
 def _gm_case(card, lane, metric, shape):
@@ -139,13 +155,63 @@ def test_kernel_matches_plain(card, kernel):
     for lane in LANES:
         for metric in METRICS:
             for shape in shapes:
-                before = wrapper.launches
+                before, gm_before = wrapper.launches, _gm_counts()
                 try:
                     case(card, lane, metric, shape)
                     torch.cuda.synchronize()
                 except AssertionError as err:
                     raise AssertionError(f"{kernel} {lane} {metric} {shape}: {err}") from err
-                assert wrapper.launches == before + 1
+                if kernel == "gm":
+                    moved = tuple(a - b for a, b in zip(_gm_counts(), gm_before))
+                    assert moved == _gm_expect(lane, shape[2]), (lane, shape)
+                else:
+                    assert wrapper.launches == before + 1
+
+
+@pytest.mark.parametrize("lane", LANES)
+def test_tc_group_min_matches_plain(card, lane):
+    for metric in METRICS:
+        for shape in GM_TC_SHAPES:
+            before = _gm_counts()
+            try:
+                _gm_case(card, lane, metric, shape)
+                torch.cuda.synchronize()
+            except AssertionError as err:
+                raise AssertionError(f"gm_tc {lane} {metric} {shape}: {err}") from err
+            assert tuple(a - b for a, b in zip(_gm_counts(), before)) == (1, 0)
+
+
+@pytest.mark.parametrize("lane", LANES)
+def test_tc_group_min_ties_and_masked_groups(card, lane):
+    # Every row the same: all scores of a query tie. count = 100 of 2048 rows
+    # with tile_n = 512, G = 128: groups 100..127 of tile 0 and every group of
+    # the later tiles have no live row and must come out +inf.
+    B, N, D, tile_n, G, count = 9, 2048, 64, 512, 128, 100
+    row = np.arange(D) % 3 if lane in ("s8", "u8") else np.full(D, D ** -0.5)
+    x = torch.from_numpy(np.tile(row, (N, 1))).to(card, _DTYPES[lane])
+    q = x[:B].clone()
+    for metric in METRICS:
+        aux = qn = None
+        if lane in ("s8", "u8") and metric == "Cosine":
+            aux = x.double().square().sum(1).float().sqrt()
+            qn = q.double().square().sum(1).float().sqrt()
+        elif lane not in ("s8", "u8") and metric == "L2":
+            aux = x.float().square().sum(1)
+        kw = dict(metric=VecSimMetric[metric], tile_n=tile_n, group_n=G, query_norms=qn)
+        before = _gm_counts()
+        got = bfk.group_min_scores(q, x, aux, count, **kw)
+        ref = bfk.group_min_scores_ref(q, x, aux, count, **kw)
+        assert tuple(a - b for a, b in zip(_gm_counts(), before)) == (1, 0)
+        dead = torch.ones((N // tile_n, G), dtype=torch.bool, device=card)
+        dead[0, :count] = False
+        dead = dead.flatten()
+        assert torch.isinf(got[:, dead]).all() and torch.isfinite(got[:, ~dead]).all()
+        assert torch.equal(torch.isinf(got), torch.isinf(ref))
+        fin = torch.isfinite(ref)
+        live = got[fin].view(B, -1)
+        assert torch.equal(live, live[:, :1].expand_as(live))  # all ties stay ties
+        tol = TOL if lane not in ("s8", "u8") else 1e-6 if metric == "Cosine" else 0.0
+        assert float((got[fin] - ref[fin]).abs().max()) <= tol, (lane, metric)
 
 
 @pytest.mark.parametrize("lane", ["s8", "u8"])
@@ -210,7 +276,7 @@ def test_index_on_card_matches_index_on_cpu(card, lane, monkeypatch):
     rng = np.random.default_rng(3)
     x, q = _rows(rng, 1500, 48, lane), _rows(rng, 9, 48, lane)
     tol = 1e-6 if lane in ("s8", "u8") else TOL
-    wrappers = (bfk.group_min_scores, bfk.fused_topk, bfk.tile_topc)
+    counts = lambda: (*_gm_counts(), bfk.fused_topk.launches, bfk.tile_topc.launches)
     for metric in METRICS:
         params = BFParams(type=_VTYPES[lane], dim=48, metric=VecSimMetric[metric])
         gpu, cpu = BruteForceIndex(params, device=card), BruteForceIndex(params, device="cpu")
@@ -218,7 +284,8 @@ def test_index_on_card_matches_index_on_cpu(card, lane, monkeypatch):
             idx.add_vector_batch(x, range(1500))
             for lab in range(0, 1500, 7):
                 idx.delete_vector(lab)
-        for k, want in ((10, (1, 0, 0)), (64, (0, 1, 0)), (200, (0, 0, 1))):
-            before = [w.launches for w in wrappers]
+        # k = 10 runs the tensor-core K1 (D = 48 passes its gate in every lane).
+        for k, want in ((10, (1, 0, 0, 0)), (64, (0, 0, 1, 0)), (200, (0, 0, 0, 1))):
+            before = counts()
             assert_replies_parity(gpu.topk_query_batch(q, k), cpu.topk_query_batch(q, k), tol)
-            assert tuple(w.launches - b for w, b in zip(wrappers, before)) == want, (metric, k)
+            assert tuple(a - b for a, b in zip(counts(), before)) == want, (metric, k)

@@ -19,21 +19,27 @@ Gates of the JAX package that existed only for the TPU are dropped: the
 device check and ``use_pallas`` (the port runs the same engine logic on the
 CPU with the kernels' plain versions), the minimum batch (a TPU compiler
 workaround), the ``dim % 128`` lane alignment (a TPU relayout copy), the
-VMEM budget and the fp32-precision gate (the kernels compute in IEEE fp32,
-not bf16_3x).
+VMEM budget and the fp32-precision gate (the port's fp32 lanes hold their
+products within 2^-20 relative, under the coverage eps, whatever
+``torch``'s matmul precision setting). One gate is the port's own:
+``gm_tc_ok`` sends the group-min engine's shapes to its tensor-core kernel
+or its CUDA-core one.
 """
 
 from __future__ import annotations
 
 import torch
 
-# fp32 scoring must stay IEEE fp32 everywhere: the group-min engine's
-# coverage test (``ops/kernels/bf_topk.py``) holds the kernel's group minima
-# against rescored distances under a 1e-5 relative guard, and TF32 (about
-# 1e-3 relative) would let a true neighbour hide in an unselected group and
-# be lost silently. These are PyTorch's defaults for matmuls; set them so
-# that no caller's setting can change the contract (cuDNN is not used on
-# this path, set anyway).
+# fp32 scores must stay within the group-min engine's coverage guard: the
+# host (``ops/kernels/bf_topk.py``) holds the kernel's group minima against
+# rescored distances under a 1e-5 relative eps, and plain TF32 (about 1e-3
+# relative) would let a true neighbour hide in an unselected group and be
+# lost silently. The rescore and every torch matmul of the port stay IEEE
+# fp32: these are PyTorch's defaults, set so that no caller's setting can
+# change the contract (cuDNN is not used on this path, set anyway). The
+# kernels choose their own arithmetic: the CUDA-core ones run IEEE fp32
+# FMAs, the tensor-core group-min kernel a 3xTF32 split whose products stay
+# within 2^-20 relative (``csrc/bf_topk_gm_tc.cu``).
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
@@ -81,6 +87,18 @@ def gm_enabled(kind: str, k: int, capacity: int, dtype) -> bool:
     tile = min(tile_n, capacity)
     n_groups = (capacity // tile) * min(gm_group_n, tile)
     return n_groups >= k + gm_slack + 2
+
+
+def gm_tc_ok(dim: int, dtype) -> bool:
+    """Gate of the group-min engine's tensor-core kernel
+    (``csrc/bf_topk_gm_tc.cu``): a store type with a scoring lane and a row
+    of ``dim`` elements whose byte length is a multiple of 16, the row
+    stride a TMA load needs. The wrapper sends every other shape to the
+    CUDA-core kernel (``csrc/bf_topk_gm.cu``) before launching."""
+    lanes = _KERNEL_DTYPES["float"] + _KERNEL_DTYPES["int"]
+    if dtype not in lanes or dim <= 0:
+        return False
+    return dim * torch.empty((), dtype=dtype).element_size() % 16 == 0
 
 
 def fused_enabled(kind: str, k: int, capacity: int, dtype) -> bool:

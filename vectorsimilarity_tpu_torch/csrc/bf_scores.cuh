@@ -18,7 +18,7 @@
 //
 // Metric epilogue (`finish`), as `ops/distances.py` scores_float / scores_int:
 //   float lanes  L2: qsq - 2 ip + sqn[row]      IP, Cosine: 1 - ip
-//   int lanes    L2: float(qsq - 2 ip + dsq)    integer algebra in int64, one cast;
+//   int lanes    L2: float(qsq - 2 ip + dsq)    exact integer algebra, one cast;
 //                    dsq (the row's sum of squares) is summed in the kernel
 //                    from the slices already in shared memory
 //                IP: 1 - float(ip)
@@ -326,8 +326,10 @@ __device__ __forceinline__ float finish(typename Lane::acc_t ip, int metric, flo
     if (metric == METRIC_L2) return qf - 2.f * ip + rf;
     return 1.f - ip;
   } else {
+    // |q - x|^2 <= 255^2 D < 2^31 (the wrappers refuse larger D), so the
+    // sum taken mod 2^32 is the exact distance whatever its terms' sizes.
     if (metric == METRIC_L2)
-      return __ll2float_rn((long long)qi - 2LL * (long long)ip + (long long)dsq);
+      return __int2float_rn((int)((unsigned)qi - 2u * (unsigned)ip + (unsigned)dsq));
     float f = (float)ip;
     if (metric == METRIC_COS) f = __fdiv_rn(f, __fmul_rn(qf, rf));
     return __fsub_rn(1.f, f);

@@ -42,9 +42,17 @@
 // The host's coverage test (ops/kernels/bf_topk.py) accepts a result only if
 // the rescored k-th distance lies below the first unselected group minimum by
 // eps = 1e-5 * max(1, |v|, |m|): the kernel-vs-rescore skew must stay below
-// eps for that test to be exact. TF32 (~1e-3 relative) would break it; the
-// rescore also runs in IEEE fp32. The integer lanes are exact, and the host
-// tests them with eps = 0.
+// eps for that test to be exact. Plain TF32 (~1e-3 relative) would break it;
+// the tensor-core kernel (bf_topk_gm_tc.cu), which serves every shape its
+// gate admits, splits fp32 into three TF32 products for that reason. The
+// rescore runs in IEEE fp32. The integer lanes are exact, and the host tests
+// them with eps = 0.
+//
+// Since the tensor-core kernel came, this one serves the shapes it refuses:
+// rows whose byte length is not a multiple of 16 (config.gm_tc_ok) or
+// tensors whose bases are not 16-byte aligned. Those are exactly the shapes
+// bf_scores.cuh's 16-byte vector loads refuse (`can_vectorize`), so only the
+// scalar-load variant (VEC = false) is built; it takes any shape.
 
 #include "bf_scores.cuh"
 
@@ -149,9 +157,21 @@ extern "C" int bf_topk_gm(const void* q, const void* data, const float* qaux_f,
     return (int)cudaErrorInvalidValue;
   const Aux aux = {qaux_f, qaux_i, raux};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define GM_CALL(Lane, VEC) \
-  return launch<Lane, VEC>(q, data, aux, gm, B, D, n_tiles, tile_n, G, count, metric, s)
-  BFS_DISPATCH(lane, q, data, D, GM_CALL)
+#define GM_CALL(Lane) \
+  return launch<Lane, false>(q, data, aux, gm, B, D, n_tiles, tile_n, G, count, metric, s)
+  switch (lane) {
+    case LANE_F32:
+      GM_CALL(LaneF32);
+    case LANE_BF16:
+      GM_CALL(LaneBF16);
+    case LANE_F16:
+      GM_CALL(LaneF16);
+    case LANE_S8:
+      GM_CALL(LaneS8);
+    case LANE_U8:
+      GM_CALL(LaneU8);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 #undef GM_CALL
-  return (int)cudaErrorInvalidValue;
 }

@@ -14,8 +14,12 @@ k <= 128   ``pallas_topk``         ``fused_topk`` (K3)        ``topk_fused``
 k <= 2048  ``pallas_topk_bigk``    ``tile_topc`` (K4)         ``topk_bigk(_exact)``
 =========  ======================  =========================  ====================
 
-K1 (``csrc/bf_topk_gm.cu``) scores every store row against the query batch
-and writes only the strided group minima of each ``tile_n``-row tile: group g
+K1 scores every store row against the query batch and writes only the
+strided group minima of each ``tile_n``-row tile. It has two kernels: the
+tensor-core one (``csrc/bf_topk_gm_tc.cu``: wgmma fed by TMA, fp32 as a
+3xTF32 split, ``split_tf32`` beside it in PyTorch) for every shape
+``config.gm_tc_ok`` admits, and the CUDA-core one (``csrc/bf_topk_gm.cu``)
+for the rest; the wrapper chooses before the launch. Group g
 of tile j holds rows ``j*tile_n + g + l*G``, ``l < L = tile_n / G``. The host
 part takes the S+1 smallest group minima per query (S = k + slack), gathers
 and rescores the S*L member rows exactly, selects the k best in (distance,
@@ -59,12 +63,13 @@ from typing import Optional
 
 import torch
 
+from ... import config
 from ...types import VecSimMetric
 from ..distances import _lex_topk, _merge_topk, scores_float, scores_int, streaming_topk
 
 _CSRC = Path(__file__).resolve().parents[2] / "csrc"
-_SOURCES = ("bf_topk_gm", "bf_topk_fused", "bf_topk_topc")
-_HEADERS = ("bf_scores.cuh", "bf_select.cuh")
+_SOURCES = ("bf_topk_gm", "bf_topk_gm_tc", "bf_topk_fused", "bf_topk_topc")
+_HEADERS = ("bf_scores.cuh", "bf_select.cuh", "bf_tc.cuh")
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 # No --use_fast_math: the integer Cosine lane needs IEEE divides.
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -89,6 +94,7 @@ class _Kernels:
         self.build_seconds = build_seconds
         ptr, num = ctypes.c_void_p, ctypes.c_int
         self.gm = self._fn("bf_topk_gm", [ptr] * 6 + [num] * 8 + [ptr])
+        self.gm_tc = self._fn("bf_topk_gm_tc", [ptr] * 7 + [num] * 8 + [ptr])
         self.fused = self._fn("bf_topk_fused", [ptr] * 9 + [num] * 9 + [ptr])
         self.topc = self._fn("bf_topk_topc", [ptr] * 7 + [num] * 8 + [ptr])
 
@@ -99,7 +105,7 @@ class _Kernels:
         return fn
 
 
-_kernels: Optional[_Kernels] = None
+_kernels: dict = {}  # defines -> _Kernels
 _load_lock = threading.Lock()  # one build per process, whichever thread asks first
 
 
@@ -113,20 +119,25 @@ def _nvcc() -> str:
     return found
 
 
-def load_kernel() -> _Kernels:
+def load_kernel(defines: tuple = ()) -> _Kernels:
     """Build every source under ``csrc/`` into ``build/torch_kernels/`` at
     first use, one nvcc per source and all started together, and load them
     with ctypes. The file names carry a hash of all sources, headers and
-    flags, so an edited source or header rebuilds."""
-    global _kernels
+    flags, so an edited source or header rebuilds.
+
+    ``defines`` (``"NAME=VALUE"`` strings, nvcc's ``-D``) build and load
+    another set beside the default one. The wrappers use the default set;
+    ``tools/k1_trials.py`` builds the tensor-core K1's trial variants so."""
+    defines = tuple(defines)
     with _load_lock:
-        if _kernels is None:
-            _kernels = _build_and_load()
-        return _kernels
+        if defines not in _kernels:
+            _kernels[defines] = _build_and_load([f"-D{d}" for d in defines])
+        return _kernels[defines]
 
 
-def _build_and_load() -> _Kernels:
-    digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+def _build_and_load(extra_flags: list) -> _Kernels:
+    flags = _NVCC_FLAGS + extra_flags
+    digest = hashlib.sha256(" ".join(flags).encode())
     for name in [f"{s}.cu" for s in _SOURCES] + list(_HEADERS):
         digest.update((_CSRC / name).read_bytes())
     tag = digest.hexdigest()[:12]
@@ -139,7 +150,7 @@ def _build_and_load() -> _Kernels:
             _BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
             procs[s] = (tmp, subprocess.Popen(
-                [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{s}.cu")],
+                [_nvcc(), *flags, "-o", str(tmp), str(_CSRC / f"{s}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
     for s, (tmp, proc) in procs.items():
@@ -223,10 +234,10 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _run(wrapper, name: str, data, call) -> None:
+def _run(wrapper, name: str, data, call, counter: str = "launches") -> None:
     """Launch one kernel on ``data``'s device and current stream, raise on a
-    refused launch, count it. ``call(kernels, stream)`` returns the C entry
-    point's error code."""
+    refused launch, count it in ``wrapper.<counter>``. ``call(kernels,
+    stream)`` returns the C entry point's error code."""
     if data.device.type != "cuda":
         raise ValueError(f"the {name} kernel runs on CUDA tensors, got {data.device}")
     kernels = load_kernel()
@@ -234,7 +245,7 @@ def _run(wrapper, name: str, data, call) -> None:
         err = call(kernels, torch.cuda.current_stream(data.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
-    wrapper.launches += 1
+    setattr(wrapper, counter, getattr(wrapper, counter) + 1)
 
 
 def _scores(queries, data, sqnorms, metric, query_norms, lo: int, hi: int):
@@ -264,30 +275,68 @@ def group_min_scores(queries: torch.Tensor, data: torch.Tensor,
     tiles, rows >= count at +inf. ``sqnorms`` [N] carries the rows' sqnorms
     (float L2) or stored norms (integer Cosine, with ``query_norms`` [B]).
 
-    CUDA tensors launch the kernel (``group_min_scores.launches`` counts the
-    launches); CPU tensors take ``group_min_scores_ref``; anything else
-    raises.
+    CUDA tensors launch one of K1's two kernels, chosen before the launch:
+    the tensor-core kernel (``csrc/bf_topk_gm_tc.cu``, counted in
+    ``group_min_scores.tc_launches``) where ``config.gm_tc_ok`` admits the
+    shape and both bases are 16-byte aligned, else the CUDA-core kernel
+    (``csrc/bf_topk_gm.cu``, ``group_min_scores.launches``). CPU tensors
+    take ``group_min_scores_ref``; anything else raises.
     """
     metric = VecSimMetric(metric)
     _check(queries, data, sqnorms, metric, query_norms)
-    n_tiles = _check_tiles(data, tile_n)
-    G = min(group_n, tile_n)
-    if tile_n % G:
-        raise ValueError(f"tile_n={tile_n} must be a multiple of G={G}")
+    _check_tiles(data, tile_n)
+    if tile_n % min(group_n, tile_n):
+        raise ValueError(f"tile_n={tile_n} must be a multiple of G={min(group_n, tile_n)}")
     if data.device.type == "cpu":
         return group_min_scores_ref(queries, data, sqnorms, count, metric=metric,
                                     tile_n=tile_n, group_n=group_n, query_norms=query_norms)
     B, D = queries.shape
+    N = data.shape[0]
+    n_tiles, G = N // tile_n, min(group_n, tile_n)
+    count = max(0, min(int(count), N))
     qf, qi, rf = _lane_aux(queries, sqnorms, metric, query_norms)
     out = torch.empty((B, n_tiles * G), dtype=torch.float32, device=data.device)
-    _run(group_min_scores, "bf_topk_gm", data, lambda kern, stream: kern.gm(
-        queries.data_ptr(), data.data_ptr(), _ptr(qf), _ptr(qi), _ptr(rf), out.data_ptr(),
-        _LANES[data.dtype], B, D, n_tiles, tile_n, G, min(int(count), data.shape[0]),
-        int(metric), stream))
+    if not gm_tc_admits(queries, data):
+        _run(group_min_scores, "bf_topk_gm", data, lambda kern, stream: kern.gm(
+            queries.data_ptr(), data.data_ptr(), _ptr(qf), _ptr(qi), _ptr(rf), out.data_ptr(),
+            _LANES[data.dtype], B, D, n_tiles, tile_n, G, count, int(metric), stream))
+        return out
+    dsq = None  # integer L2: the rows' sums of squares, written by the call
+    if not data.dtype.is_floating_point and metric == VecSimMetric.L2:
+        dsq = torch.empty((max(count, 1),), dtype=torch.int32, device=data.device)
+    _run(group_min_scores, "bf_topk_gm_tc", data, lambda kern, stream: kern.gm_tc(
+        queries.data_ptr(), data.data_ptr(), _ptr(qf), _ptr(qi), _ptr(rf), _ptr(dsq),
+        out.data_ptr(), _LANES[data.dtype], B, D, n_tiles, tile_n, G, count, int(metric),
+        stream), counter="tc_launches")
     return out
 
 
-group_min_scores.launches = 0
+group_min_scores.launches = 0  # CUDA-core kernel
+group_min_scores.tc_launches = 0  # tensor-core kernel
+
+
+def gm_tc_admits(queries: torch.Tensor, data: torch.Tensor) -> bool:
+    """Whether the tensor-core K1 takes these tensors: ``config.gm_tc_ok``
+    on the row width and type, and 16-byte aligned bases (the CUDA
+    allocator's blocks are, so a view's element offset decides)."""
+    D = queries.shape[1]
+    return config.gm_tc_ok(D, data.dtype) and all(
+        t.storage_offset() * t.element_size() % 16 == 0 for t in (queries, data))
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo) fp32 tensors with hi + lo ~ x: the tensor-core K1's 3xTF32
+    split (``csrc/bf_topk_gm_tc.cu``) on any device. hi rounds x to TF32 (11
+    significant bits, nearest, ties away from zero: the integer form of
+    cvt.rna.tf32.f32), lo rounds x - hi (exact in fp32) the same way. For
+    finite x, |x - hi - lo| <= max(2^-22 |x|, 2^-137)."""
+    def rna(v: torch.Tensor) -> torch.Tensor:
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    x = x.to(torch.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
 
 
 def group_min_scores_ref(queries: torch.Tensor, data: torch.Tensor,
