@@ -18,13 +18,19 @@ check:
    one (`bf_topk_gm_tc.cu`) for the shapes `config.gm_tc_ok` admits and the
    CUDA-core one (`bf_topk_gm.cu`) for the rest; each shape asserts which
    launch counter moved.
-4. Hold every kernel (both K1s, fused top-k K3, per-tile top-c K4) in every
-   lane (fp32, bf16, fp16, int8, uint8) against its plain version at small
-   odd shapes: B = 1, 7, 130, count off the grid, k > count, dims that are
-   not multiples of 4 or 16 (D = 37 and 40 go to the CUDA-core K1 in int8),
-   all three metrics. Float lanes within 1e-5 with ids equal except at
-   near-ties; integer lanes equal (Cosine, which rounds one fp32 divide,
-   within 1e-6).
+4. Hold every kernel (both K1s, both fused top-k K3s, per-tile top-c K4) in
+   every lane (fp32, bf16, fp16, int8, uint8) against its plain version at
+   small odd shapes: B = 1, 7, 130, count off the grid, k > count, dims that
+   are not multiples of 4 or 16 (D = 37 and 40 go to the CUDA-core K1 and
+   K3 in int8), all three metrics; the tensor-core K3 also at m = 1, 40,
+   100, 128 with and without a lower bound. Float lanes within 1e-5 with
+   ids equal except at near-ties; integer lanes equal (Cosine, which rounds
+   one fp32 divide, within 1e-6). K1 and K3 each have a tensor-core kernel
+   (for the rows `config.gm_tc_ok` admits) and a CUDA-core one; every call
+   asserts which launch counter moved. At the headline store with B = 1
+   (fp32, Cosine), the tensor-core K1, the tensor-core K3 (k = 100) and the
+   CUDA-core K3 (at ``CC_DIM``) are held against their plain versions and
+   timed beside them.
 5. The main path at full width, once per store type. The fp32 store is
    adopted into the port's ``BruteForceIndex`` (built with no ``device``, so
    on the card); then a float16, a bfloat16, an int8 and a uint8 store of the
@@ -32,14 +38,17 @@ check:
    With every launch and fallback count set to 0 just before,
    ``topk_query_batch`` (host API) and ``search_knn_device`` (B = 1024) run
    at k = 10 (group-min), k = 100 (fused) and k = 500 (top-c); each engine's
-   kernel must have launched (at k = 10 the tensor-core K1, and the
-   CUDA-core K1 never) and no fallback may have run; 32 queries per k are
+   kernel must have launched (at k = 10 the tensor-core K1 and at k = 100
+   the tensor-core K3, the CUDA-core ones never) and no fallback may have
+   run; 32 queries per k are
    held against an exact float64 ground truth. Then each kernel is held
    against its plain version at the full-width shape and both are timed,
    beside the bare product at the same shape (``product_ms``:
    ``torch.matmul`` with TF32 off, or ``torch._int_mm``; none for uint8).
-   The CUDA-core K1 is timed at the same size with rows cut to a width the
-   tensor-core gate refuses (``CC_DIM``), the shapes it serves. The QPS of
+   The CUDA-core K1 and K3 are timed at the same size with rows cut to a
+   width the tensor-core gate refuses (``CC_DIM``), the shapes they serve.
+   The tensor-core K3 is also timed at IP, for the cost of its Cosine
+   epilogue. The QPS of
    ``search_knn_device`` is taken per k.
 6. An all-ties store must trip the group-min fallback, and a store with all
    near rows in one tile must trip the top-c truncation fallback; both must
@@ -86,7 +95,7 @@ PEAK_OPS = {"f32": 989e12, "f16": 989e12, "bf16": 989e12, "s8": 1979e12, "u8": 1
 PASSES = {"f32": 3, "f16": 1, "bf16": 1, "s8": 1, "u8": 1}
 TF32_PEAK = 495e12
 PEAK_BYTES = 3.35e12
-# Row width at which the CUDA-core K1 is timed at full width: the widest
+# Row width at which the CUDA-core K1 and K3 are timed at full width: the widest
 # below the headline's 768 that the tensor-core gate refuses (a row not a
 # multiple of 16 bytes), and for int8 one torch._int_mm takes (a multiple of 8).
 CC_DIM = {"f32": 767, "f16": 767, "bf16": 767, "s8": 760, "u8": 760}
@@ -95,6 +104,8 @@ KERNELS = {  # kernel -> (C entry point, source, TPU kernel it replaces)
               "vectorsimilarity_tpu/ops/pallas/bf_topk.py:509"),
     "gm": ("bf_topk_gm", "vectorsimilarity_tpu_torch/csrc/bf_topk_gm.cu",
            "vectorsimilarity_tpu/ops/pallas/bf_topk.py:509"),
+    "fused_tc": ("bf_topk_fused_tc", "vectorsimilarity_tpu_torch/csrc/bf_topk_fused_tc.cu",
+                 "vectorsimilarity_tpu/ops/pallas/bf_topk.py:196"),
     "fused": ("bf_topk_fused", "vectorsimilarity_tpu_torch/csrc/bf_topk_fused.cu",
               "vectorsimilarity_tpu/ops/pallas/bf_topk.py:196"),
     "topc": ("bf_topk_topc", "vectorsimilarity_tpu_torch/csrc/bf_topk_topc.cu",
@@ -127,6 +138,17 @@ GM_TC_SHAPES = [
     (7, 4096, 96, 3999, 1024, 256),
     (130, 2048, 48, 2000, 512, 128),
     (130, 1024, 768, 1000, 128, 16),
+]
+# (B, N, dim, count, k, bound) — fused top-k shapes every lane's tensor-core
+# K3 takes: B = 1, 7, 130, counts off the 128-row grid, m = 1, 40, 100, 128,
+# ``bound`` = the slot of the plain version's list that serves as the lower
+# bound (None: no bound).
+FUSED_TC_SHAPES = [
+    (1, 5000, 768, 4999, 128, None),
+    (7, 3000, 64, 2900, 40, 17),
+    (130, 20000, 96, 19999, 100, None),
+    (130, 9000, 48, 8800, 1, None),
+    (7, 70000, 128, 69001, 128, 60),
 ]
 
 
@@ -166,8 +188,13 @@ def lists_error(got, ref, tol):
     [R, m]. Unfilled slots (+inf, -1) must coincide; with ``tol`` = 0
     everything must be equal, else distances within ``tol`` and ids equal
     except at slots whose reference distance lies within ``tol`` of a
-    neighbouring slot's."""
+    neighbouring slot's. ``ref`` may hold one slot more than ``got``, the
+    plain version's next pair: it decides whether got's last slot is such a
+    near-tie (the kernel may then hold that next pair there)."""
     (d, i), (rd, ri) = got, ref
+    m = d.shape[1]
+    nxt = rd[:, m:m + 1]
+    rd, ri = rd[:, :m], ri[:, :m]
     i, ri = i.to(torch.int64), ri.to(torch.int64)
     fin = torch.isfinite(rd)
     if not torch.equal(torch.isfinite(d), fin) or not bool((i[~fin] == -1).all()):
@@ -179,10 +206,11 @@ def lists_error(got, ref, tol):
         return err
     if not err <= tol:
         raise AssertionError(f"kernel disagrees with its plain version: {err:.3e}")
-    gap = torch.diff(torch.where(fin, rd, 0.0).double(), dim=1).abs() <= tol
+    ext = torch.cat([rd, nxt], dim=1)
+    gap = torch.diff(torch.where(torch.isfinite(ext), ext, 0.0).double(), dim=1).abs() <= tol
     tied = torch.zeros_like(fin)
-    tied[:, 1:] |= gap
-    tied[:, :-1] |= gap
+    tied[:, 1:] |= gap[:, :m - 1]
+    tied[:, :gap.shape[1]] |= gap
     bad = (i != ri) & ~tied
     if bool(bad.any()):
         raise AssertionError(f"{int(bad.sum())} ids differ from the plain version's")
@@ -241,6 +269,23 @@ def gm_checked(q, x, aux, count, want=None, **kw):
     return out, which
 
 
+def fused_checked(q, x, aux, count, k, want=None, **kw):
+    """fused_topk through the wrapper, asserting that the kernel the gate
+    names (and ``want``, if given) launched once and the other not at all.
+    Returns (lists, which kernel: "fused_tc" or "fused")."""
+    from vectorsimilarity_tpu_torch.ops.kernels import bf_topk as bfk
+
+    w = bfk.fused_topk
+    before = (w.tc_launches, w.launches)
+    out = w(q, x, aux, count, k, **kw)
+    which = "fused_tc" if bfk.fused_tc_admits(q, x) else "fused"
+    moved = (w.tc_launches - before[0], w.launches - before[1])
+    if moved != ((1, 0) if which == "fused_tc" else (0, 1)) or want not in (None, which):
+        raise AssertionError(f"{tuple(x.shape)} {x.dtype}: launches moved {moved}, want "
+                             f"{want or which}")
+    return out, which
+
+
 def check_kernel(dev, shapes):
     """The group-min kernels' fp32 lane vs the plain version on each shape;
     returns {kernel: max abs error} over all shapes."""
@@ -269,13 +314,17 @@ def check_kernel(dev, shapes):
 
 
 def one_query(store, queries, smi):
-    """The tensor-core K1's fp32 lane at the headline store with B = 1 (a
-    block of 128 queries holds one): error vs plain, and both times."""
+    """The fp32 lane at the headline store with B = 1 (a block holds 128
+    queries in K1, 64 in K3, so one query fills a block's first row): the
+    tensor-core K1, the tensor-core K3 at k = 100 and the CUDA-core K3 at
+    ``CC_DIM``, each held against its plain version and timed beside it.
+    Returns {kernel: max abs error}."""
     from vectorsimilarity_tpu_torch.ops.kernels import bf_topk as bfk
     from vectorsimilarity_tpu_torch.types import VecSimMetric
 
     q = queries[:1].contiguous()
-    kw = dict(metric=VecSimMetric.Cosine, tile_n=TILE_N, group_n=GROUP_N)
+    metric = VecSimMetric.Cosine
+    kw = dict(metric=metric, tile_n=TILE_N, group_n=GROUP_N)
     err, _ = gm_error(gm_checked(q, store, None, N, **kw)[0],
                       bfk.group_min_scores_ref(q, store, None, N, **kw))
     ms = time_ms(lambda: bfk.group_min_scores(q, store, None, N, **kw), 5)
@@ -284,7 +333,20 @@ def one_query(store, queries, smi):
           f"{ms:.3f} ms, plain {plain_ms:.3f} ms; card {smi}", flush=True)
     if not err <= TOL:
         raise AssertionError(f"kernel disagrees with its plain version: {err:.3e}")
-    return err
+    errs = {"gm_tc": err}
+    k = KS[1]
+    cx = store[:, :CC_DIM["f32"]].contiguous()
+    for which, qq, xx in (("fused_tc", q, store), ("fused", q[:, :CC_DIM["f32"]].contiguous(), cx)):
+        err = lists_error(fused_checked(qq, xx, None, N, k, which, metric=metric)[0],
+                          bfk.fused_topk_ref(qq, xx, None, N, k + 1, metric=metric), TOL)
+        ms = time_ms(lambda: bfk.fused_topk(qq, xx, None, N, k, metric=metric), 5)
+        plain_ms = time_ms(lambda: bfk.fused_topk_ref(qq, xx, None, N, k, metric=metric), 5)
+        print(f"# {KERNELS[which][0]}_f32 vs plain at {N} x {xx.shape[1]}, B=1, k={k}: max abs "
+              f"err {err:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; card {smi}",
+              flush=True)
+        errs[which] = err
+    del cx
+    return errs
 
 
 def lane_case(dev, gen, lane, mname, B, n, dim):
@@ -302,8 +364,24 @@ def lane_case(dev, gen, lane, mname, B, n, dim):
     return q, x, (x.float().square().sum(1) if mname == "L2" else None), None
 
 
+def lower_bound(tol, rd, ri, slot):
+    """A per-query lower bound (lo_d, lo_i) from the plain version's sorted
+    lists of at least slot + 9 pairs: the pair at ``slot`` itself where the
+    lane is exact (``tol`` = 0, so the id rule decides), else, with id 0, the
+    middle of the widest gap between slots slot .. slot + 8, so that the
+    kernel's and the plain version's roundings cannot put a row on
+    different sides of it."""
+    if tol == 0:
+        return rd[:, slot].contiguous(), ri[:, slot].contiguous()
+    seg = rd[:, slot:slot + 9].double()
+    j = torch.diff(seg, dim=1).argmax(dim=1, keepdim=True)
+    mid = (seg.gather(1, j) + seg.gather(1, j + 1)) / 2
+    return mid[:, 0].float().contiguous(), torch.zeros_like(ri[:, slot])
+
+
 def check_lanes(dev):
-    """Every kernel and lane vs its plain version at LANE_SHAPES, all three
+    """Every kernel and lane vs its plain version at LANE_SHAPES (the K1s
+    also at GM_TC_SHAPES, the tensor-core K3 at FUSED_TC_SHAPES), all three
     metrics. Returns {(kernel, lane): max abs error}."""
     from vectorsimilarity_tpu_torch.ops.kernels import bf_topk as bfk
     from vectorsimilarity_tpu_torch.types import VecSimMetric
@@ -329,19 +407,29 @@ def check_lanes(dev):
             for B, n, dim, count, tile_n, group_n, c, k in LANE_SHAPES:
                 q, x, aux, qn = lane_case(dev, gen, lane, mname, B, n, dim)
                 kw = dict(metric=VecSimMetric[mname], query_norms=qn)
-                got = bfk.fused_topk(q, x, aux, count, k, **kw)
-                ref = bfk.fused_topk_ref(q, x, aux, count, k, **kw)
-                worst["fused", lane] = max(worst["fused", lane], lists_error(got, ref, tol))
+                got, which = fused_checked(q, x, aux, count, k, **kw)
+                ref = bfk.fused_topk_ref(q, x, aux, count, k + 1, **kw)
+                worst[which, lane] = max(worst[which, lane], lists_error(got, ref, tol))
                 got = bfk.tile_topc(q, x, aux, count, tile_n=tile_n, c=c, **kw)
                 ref = bfk.tile_topc_ref(q, x, aux, count, tile_n=tile_n, c=c, **kw)
                 flat = lambda pair: tuple(t.reshape(-1, c) for t in pair)
                 worst["topc", lane] = max(worst["topc", lane],
                                           lists_error(flat(got), flat(ref), tol))
+            for B, n, dim, count, k, bound in FUSED_TC_SHAPES:
+                q, x, aux, qn = lane_case(dev, gen, lane, mname, B, n, dim)
+                kw = dict(metric=VecSimMetric[mname], query_norms=qn)
+                if bound is not None:
+                    rd, ri = bfk.fused_topk_ref(q, x, aux, count, bound + 9, **kw)
+                    kw["lo"] = lower_bound(tol, rd, ri, bound)
+                got, _ = fused_checked(q, x, aux, count, k, "fused_tc", **kw)
+                ref = bfk.fused_topk_ref(q, x, aux, count, k + 1, **kw)
+                worst["fused_tc", lane] = max(worst["fused_tc", lane], lists_error(got, ref, tol))
         torch.cuda.synchronize()
-        print(f"# {lane}: gm_tc, gm, fused, topc vs plain at {len(gm_shapes)} (K1) and "
-              f"{len(LANE_SHAPES)} odd shapes x 3 metrics: max abs err "
-              f"{worst['gm_tc', lane]:.3e}, {worst['gm', lane]:.3e}, {worst['fused', lane]:.3e}, "
-              f"{worst['topc', lane]:.3e}", flush=True)
+        print(f"# {lane}: gm_tc, gm, fused_tc, fused, topc vs plain at {len(gm_shapes)} (K1), "
+              f"{len(LANE_SHAPES) + len(FUSED_TC_SHAPES)} (K3) and {len(LANE_SHAPES)} (K4) odd "
+              f"shapes x 3 metrics: max abs err {worst['gm_tc', lane]:.3e}, "
+              f"{worst['gm', lane]:.3e}, {worst['fused_tc', lane]:.3e}, "
+              f"{worst['fused', lane]:.3e}, {worst['topc', lane]:.3e}", flush=True)
     return worst
 
 
@@ -420,7 +508,7 @@ def product_ms(lane, queries, store):
 def full_width(lane, store, norms, raw_queries, smi, small_err):
     """Phase 5 for one store type; ``raw_queries`` [BATCH, DIM] go through the
     index's own preprocessing for the host API and the device path alike.
-    Returns the three kernels' result rows."""
+    Returns every kernel's result row."""
     from vectorsimilarity_tpu_torch.indexes.brute_force import BruteForceIndex
     from vectorsimilarity_tpu_torch.ops.kernels import bf_topk as bfk
     from vectorsimilarity_tpu_torch.types import BFParams, VecSimMetric, VecSimType
@@ -438,8 +526,9 @@ def full_width(lane, store, norms, raw_queries, smi, small_err):
     queries, qnorms = (idx.to_device(a) for a in idx.preprocess_queries(raw))
     counters = {"gm_tc": (bfk.group_min_scores, "tc_launches"),
                 "gm": (bfk.group_min_scores, "launches"),
+                "fused_tc": (bfk.fused_topk, "tc_launches"),
                 "fused": (bfk.fused_topk, "launches"), "topc": (bfk.tile_topc, "launches")}
-    engine_of = dict(zip(KS, ("gm_tc", "fused", "topc")))
+    engine_of = dict(zip(KS, ("gm_tc", "fused_tc", "topc")))
 
     # The main path, counts at 0 just before and read just after.
     for w, attr in counters.values():
@@ -451,13 +540,15 @@ def full_width(lane, store, norms, raw_queries, smi, small_err):
                                                                                qn=qnorms))
     torch.cuda.synchronize()
     launches = {name: getattr(w, attr) for name, (w, attr) in counters.items()}
-    fallbacks = {"gm_tc": bfk.topk_gm_exact.fallbacks, "gm": 0, "fused": 0,
+    fallbacks = {"gm_tc": bfk.topk_gm_exact.fallbacks, "gm": 0, "fused_tc": 0, "fused": 0,
                  "topc": bfk.topk_bigk_exact.fallbacks}
     print(f"# main path {lane}: launches {launches}, fallbacks {fallbacks}", flush=True)
     if any(launches[e] < 2 for e in engine_of.values()):
         raise AssertionError("an engine of the main path did not launch its kernel")
     if launches["gm"]:
         raise AssertionError("the main path ran the CUDA-core K1, not the tensor-core one")
+    if launches["fused"]:
+        raise AssertionError("the main path ran the CUDA-core K3, not the tensor-core one")
     if any(fallbacks.values()):
         raise AssertionError("an exact fallback ran on random data")
 
@@ -482,36 +573,44 @@ def full_width(lane, store, norms, raw_queries, smi, small_err):
     topc_kw = dict(tile_n=TILE_N, c=LOCAL_C, **kw)
     flat = lambda pair: tuple(t.reshape(-1, LOCAL_C) for t in pair)
     gm_cmp = lambda got, ref: gm_error(got, ref)[0]
-    # The CUDA-core K1's shape: the same rows and queries cut to CC_DIM.
+    # The CUDA-core K1's and K3's shape: the same rows and queries cut to CC_DIM.
     cut = lambda t: t[:, :CC_DIM[lane]].contiguous()
     cq, cx = cut(queries), cut(store)
     cn, cqn = (None, None) if norms is None else (int_norms(cx), int_norms(cq))
     cc_kw = dict(gm_kw, query_norms=cqn)
+    cc_fused_kw = dict(kw, query_norms=cqn)
+    lists_cmp = lambda got, ref: lists_error(got, ref, tol)
     calls = {
         "gm_tc": (lambda: gm_checked(queries, store, norms, N, "gm_tc", **gm_kw)[0],
                   lambda: bfk.group_min_scores_ref(queries, store, norms, N, **gm_kw), gm_cmp),
         "gm": (lambda: gm_checked(cq, cx, cn, N, "gm", **cc_kw)[0],
                lambda: bfk.group_min_scores_ref(cq, cx, cn, N, **cc_kw), gm_cmp),
-        "fused": (lambda: bfk.fused_topk(queries, store, norms, N, KS[1], **kw),
-                  lambda: bfk.fused_topk_ref(queries, store, norms, N, KS[1], **kw),
-                  lambda got, ref: lists_error(got, ref, tol)),
+        "fused_tc": (lambda: fused_checked(queries, store, norms, N, KS[1], "fused_tc", **kw)[0],
+                     lambda: bfk.fused_topk_ref(queries, store, norms, N, KS[1], **kw),
+                     lists_cmp,
+                     lambda: bfk.fused_topk_ref(queries, store, norms, N, KS[1] + 1, **kw)),
+        "fused": (lambda: fused_checked(cq, cx, cn, N, KS[1], "fused", **cc_fused_kw)[0],
+                  lambda: bfk.fused_topk_ref(cq, cx, cn, N, KS[1], **cc_fused_kw), lists_cmp,
+                  lambda: bfk.fused_topk_ref(cq, cx, cn, N, KS[1] + 1, **cc_fused_kw)),
         "topc": (lambda: bfk.tile_topc(queries, store, norms, N, **topc_kw),
                  lambda: bfk.tile_topc_ref(queries, store, norms, N, **topc_kw),
                  lambda got, ref: lists_error(flat(got), flat(ref), tol)),
     }
     gm_out = BATCH * (CAP // TILE_N) * GROUP_N * 4
-    out_bytes = {"gm_tc": gm_out, "gm": gm_out, "fused": BATCH * KS[1] * 8,
-                 "topc": BATCH * (CAP // TILE_N) * LOCAL_C * 8}
+    out_bytes = {"gm_tc": gm_out, "gm": gm_out, "fused_tc": BATCH * KS[1] * 8,
+                 "fused": BATCH * KS[1] * 8, "topc": BATCH * (CAP // TILE_N) * LOCAL_C * 8}
     aux_bytes = 0 if norms is None else (N + BATCH) * 4
-    dims = {name: CC_DIM[lane] if name == "gm" else DIM for name in calls}
+    dims = {name: CC_DIM[lane] if name in ("gm", "fused") else DIM for name in calls}
     prods = {DIM: product_ms(lane, queries, store), CC_DIM[lane]: product_ms(lane, cq, cx)}
     if lane == "f32":
         tf32_ms = 1e3 * PASSES[lane] * 2.0 * BATCH * N * DIM / TF32_PEAK
         print(f"# f32 bound as the tensor-core K1's 3xTF32 (three passes at the TF32 peak): "
               f"{tf32_ms:.3f} ms at {N} x {DIM}, B={BATCH}", flush=True)
     rows = {}
-    for name, (kernel, plain, compare) in calls.items():
-        err = compare(kernel(), plain())
+    # (kernel, plain version, comparison[, the plain call it compares with:
+    # K3's carries one slot more, for the near-tie at the last slot])
+    for name, (kernel, plain, compare, *check) in calls.items():
+        err = compare(kernel(), (check[0] if check else plain)())
         if not err <= tol:
             raise AssertionError(f"{name} {lane}: kernel disagrees with plain: {err:.3e}")
         ms, plain_ms = time_ms(kernel, 3), time_ms(plain, 2)
@@ -530,6 +629,14 @@ def full_width(lane, store, norms, raw_queries, smi, small_err):
               flush=True)
         rows[name] = row
     del cq, cx, cn, cqn
+
+    # The cost of K3's Cosine epilogue: the tensor-core K3 at IP on the same
+    # rows and queries (no norms), beside its Cosine time above.
+    ip_kw = dict(metric=VecSimMetric.IP)
+    ip_ms = time_ms(lambda: fused_checked(queries, store, None, N, KS[1], "fused_tc",
+                                          **ip_kw), 3)
+    print(f"# {rows['fused_tc']['name']} at {N} x {DIM}, B={BATCH}, k={KS[1]}: IP "
+          f"{ip_ms:.3f} ms, Cosine {rows['fused_tc']['ms']:.3f} ms; card {smi}", flush=True)
 
     # QPS of the device path, one engine per k.
     staged = [queries, queries.flip(0).contiguous()]
@@ -632,7 +739,8 @@ def main() -> int:
     small_err = check_lanes(dev)
     for name, err in gm_small.items():
         small_err[name, "f32"] = max(small_err[name, "f32"], err)
-    small_err["gm_tc", "f32"] = max(small_err["gm_tc", "f32"], one_query(store, queries, smi))
+    for name, err in one_query(store, queries, smi).items():
+        small_err[name, "f32"] = max(small_err[name, "f32"], err)
 
     # 5. The main path at full width, one store type after another. The
     # integer stores hold the fp32 rows scaled to the int8 range (uint8:

@@ -198,3 +198,39 @@ def test_fused_wrapper_rejects_what_it_cannot_launch():
     with pytest.raises(ValueError, match="int32"):
         bfk.fused_topk(wide, wide, None, 2, 1, metric=TM.IP)
     assert bfk.fused_topk.launches == before
+
+
+@pytest.mark.parametrize("dtype,dim,admit", [
+    (torch.float32, 40, True), (torch.float32, 37, False), (torch.float16, 64, True),
+    (torch.bfloat16, 36, False), (torch.int8, 48, True), (torch.int8, 40, False),
+    (torch.uint8, 16, True), (torch.float64, 64, False)])
+def test_fused_tc_admits_row_widths_and_types(dtype, dim, admit):
+    # The tensor-core K3 loads rows by TMA: a row of a multiple of 16 bytes,
+    # in a type with a scoring lane.
+    q, x = torch.zeros((3, dim), dtype=dtype), torch.zeros((10, dim), dtype=dtype)
+    assert bfk.fused_tc_admits(q, x) is admit
+
+
+def test_fused_tc_admits_refuses_an_unaligned_view():
+    x, q = torch.zeros((11, 64), dtype=torch.bfloat16), torch.zeros((3, 64), dtype=torch.bfloat16)
+    assert bfk.fused_tc_admits(q, x[1:])  # a whole row in: 128 bytes, aligned
+    off = x.flatten()[1:1 + 10 * 64].view(10, 64)  # 2 bytes in
+    assert off.is_contiguous() and not bfk.fused_tc_admits(q, off)
+    assert bfk.fused_tc_admits(q.flatten()[8:8 + 2 * 64].view(2, 64), x)  # 16 bytes in
+    assert not bfk.fused_tc_admits(q.flatten()[4:4 + 2 * 64].view(2, 64), x)  # 8 bytes in
+
+
+@pytest.mark.parametrize("B,live,sms", [
+    (1024, 1_000_000, 132), (1, 70_000, 132), (130, 20_000, 132), (7, 100, 132), (1, 0, 132),
+    (5000, 3_000_000, 132), (64, 128_001, 114)])
+def test_fused_tc_range_planner(B, live, sms):
+    # Ranges are whole 128-row sub-tiles (so a row always lands in the same
+    # column and scores the same in every pass), cover the live rows with no
+    # empty range, and the grid is one wave of blocks of 64 queries.
+    rows, n = bfk._fused_tc_ranges(B, live, sms)
+    assert rows % 128 == 0 and rows >= 1024 and n >= 1
+    assert n * rows >= live and (n - 1) * rows < max(live, 1)
+    qblocks = -(-B // 64)
+    assert n * qblocks <= max(sms, qblocks)
+    if (B, live) == (1024, 1_000_000):
+        assert (rows, n) == (125_056, 8)  # the headline: 16 query blocks x 8 ranges

@@ -12,9 +12,9 @@ Float lanes: kernel and plain version both sum in fp32, in different orders
 (the tensor-core K1's fp32 lane multiplies as a 3xTF32 split, within 2^-20
 relative of fp32 products), so distances agree within 1e-5 and ids except at
 near-ties. Integer lanes are exact on both sides: L2 and IP must be equal;
-Cosine rounds one fp32 divide and is held to 1e-6. K1 has two kernels: the
-tensor-core one where ``config.gm_tc_ok`` admits the shape, the CUDA-core
-one elsewhere; every K1 case checks which one launched.
+Cosine rounds one fp32 divide and is held to 1e-6. K1 and K3 each have two
+kernels: the tensor-core one where ``config.gm_tc_ok`` admits the shape, the
+CUDA-core one elsewhere; every K1 and K3 case checks which one launched.
 """
 
 import numpy as np
@@ -71,11 +71,15 @@ def _case(card, lane, metric, B, N, D, seed, small=False):
 
 def _assert_lists(lane, metric, got, ref):
     """Sorted (distance, id) lists [B, m] of a kernel against its plain
-    version."""
+    version. ``ref`` may hold one slot more, the plain version's next pair:
+    appended to the kernel's lists it makes their last slot count as a
+    near-tie when the plain m-th and (m+1)-th distances are one."""
     (d, i), (rd, ri) = got, ref
+    m = d.shape[1]
     if lane in ("s8", "u8") and metric != "Cosine":
-        assert torch.equal(d, rd) and torch.equal(i, ri)
+        assert torch.equal(d, rd[:, :m]) and torch.equal(i, ri[:, :m])
     else:
+        d, i = torch.cat([d, rd[:, m:]], dim=1), torch.cat([i, ri[:, m:]], dim=1)
         assert_topk_parity(d, i, rd, ri, 1e-6 if lane in ("s8", "u8") else TOL)
 
 
@@ -91,9 +95,18 @@ GM_SHAPES = [(37, 1024, 40, 128, 16, 1000), (1, 4096, 37, 1024, 256, 3001),
 # 128-row sub-tile, count inside a tile, count below one tile, c = tile_n.
 TOPC_SHAPES = [(37, 1024, 40, 64, 16, 1000), (1, 4096, 37, 1024, 32, 3001),
                (130, 2048, 64, 512, 128, 300), (7, 512, 48, 128, 128, 512)]
-# Fused top-k (B, N, D, count, k): N off the 128-row grid, k > count, k = 128.
+# Fused top-k (B, N, D, count, k): N off the 128-row grid, k > count, k = 128;
+# D = 37 and (in the byte lanes) 40 and 48 go to the CUDA-core K3.
 FUSED_SHAPES = [(37, 3000, 40, 2500, 100), (7, 2048, 37, 50, 64), (130, 5000, 64, 5000, 128),
                 (1, 70000, 48, 69999, 33)]
+# Fused top-k every lane's tensor-core K3 takes (B, N, D, count, k, bound):
+# B = 1, 7, 130, counts off the 128-row grid and off the ranges, m = 1, 40,
+# 100, 128, k > count, count = 0; ``bound``: the slot of the plain version's
+# list that sets the lower bound (None: no bound).
+FUSED_TC_SHAPES = [(1, 70000, 64, 69001, 128, None), (7, 3000, 96, 2900, 40, 17),
+                   (130, 20000, 48, 19999, 100, None), (130, 9000, 128, 8800, 1, None),
+                   (7, 40000, 64, 39999, 128, 60), (1, 5000, 768, 4999, 100, 3),
+                   (7, 2048, 64, 50, 64, None), (3, 1000, 64, 0, 10, None)]
 # Group minima every lane's tensor-core K1 takes (B, N, D, tile_n, G, count):
 # B = 1, 7, 130, counts off the grid, G below and above its 128 columns.
 GM_TC_SHAPES = [(1, 8192, 768, 4096, 256, 7001), (7, 4096, 96, 1024, 256, 3999),
@@ -135,37 +148,64 @@ def _topc_case(card, lane, metric, shape):
                   (rd.reshape(-1, c), ri.reshape(-1, c)))
 
 
+def _fused_counts():
+    return bfk.fused_topk.tc_launches, bfk.fused_topk.launches
+
+
+def _fused_expect(lane, D):
+    """(tensor-core, CUDA-core) launches one K3 call must add."""
+    return (1, 0) if config.gm_tc_ok(D, _DTYPES[lane]) else (0, 1)
+
+
+def _lower_bound(lane, metric, rd, ri, slot):
+    """(lo_d, lo_i) from the plain version's lists of at least slot + 9
+    pairs: the pair at ``slot`` in the exact lanes (the id rule decides),
+    else, with id 0, the middle of the widest gap between slots slot ..
+    slot + 8, so that the two sides' roundings cannot put a row on different
+    sides of the bound."""
+    if lane in ("s8", "u8") and metric != "Cosine":
+        return rd[:, slot].contiguous(), ri[:, slot].contiguous()
+    seg = rd[:, slot:slot + 9].double()
+    j = torch.diff(seg, dim=1).argmax(dim=1, keepdim=True)
+    mid = (seg.gather(1, j) + seg.gather(1, j + 1)) / 2
+    return mid[:, 0].float().contiguous(), torch.zeros_like(ri[:, slot])
+
+
 def _fused_case(card, lane, metric, shape):
-    B, N, D, count, k = shape
+    B, N, D, count, k = shape[:5]
+    bound = shape[5] if len(shape) > 5 else None
     q, x, aux, qn, m = _case(card, lane, metric, B, N, D, seed=B + D + 2)
     kw = dict(metric=m, query_norms=qn)
+    if bound is not None:
+        rd, ri = bfk.fused_topk_ref(q, x, aux, count, bound + 9, **kw)
+        kw["lo"] = _lower_bound(lane, metric, rd, ri, bound)
     got = bfk.fused_topk(q, x, aux, count, k, **kw)
-    ref = bfk.fused_topk_ref(q, x, aux, count, k, **kw)
+    ref = bfk.fused_topk_ref(q, x, aux, count, k + 1, **kw)
     assert got[0].shape == (B, k) and got[1].dtype == torch.int32
     _assert_lists(lane, metric, got, ref)
 
 
-@pytest.mark.parametrize("kernel", ["gm", "fused", "topc"])
+@pytest.mark.parametrize("kernel", ["gm", "fused", "fused_tc", "topc"])
 def test_kernel_matches_plain(card, kernel):
-    wrapper, case, shapes = {
-        "gm": (bfk.group_min_scores, _gm_case, GM_SHAPES),
-        "fused": (bfk.fused_topk, _fused_case, FUSED_SHAPES),
-        "topc": (bfk.tile_topc, _topc_case, TOPC_SHAPES),
+    # (case, shapes, launch counters, the counters' expected moves)
+    case, shapes, counts, expect = {
+        "gm": (_gm_case, GM_SHAPES, _gm_counts, _gm_expect),
+        "fused": (_fused_case, FUSED_SHAPES, _fused_counts, _fused_expect),
+        "fused_tc": (_fused_case, FUSED_TC_SHAPES, _fused_counts, lambda lane, D: (1, 0)),
+        "topc": (_topc_case, TOPC_SHAPES, lambda: (bfk.tile_topc.launches,),
+                 lambda lane, D: (1,)),
     }[kernel]
     for lane in LANES:
         for metric in METRICS:
             for shape in shapes:
-                before, gm_before = wrapper.launches, _gm_counts()
+                before = counts()
                 try:
                     case(card, lane, metric, shape)
                     torch.cuda.synchronize()
                 except AssertionError as err:
                     raise AssertionError(f"{kernel} {lane} {metric} {shape}: {err}") from err
-                if kernel == "gm":
-                    moved = tuple(a - b for a, b in zip(_gm_counts(), gm_before))
-                    assert moved == _gm_expect(lane, shape[2]), (lane, shape)
-                else:
-                    assert wrapper.launches == before + 1
+                moved = tuple(a - b for a, b in zip(counts(), before))
+                assert moved == expect(lane, shape[2]), (kernel, lane, shape, moved)
 
 
 @pytest.mark.parametrize("lane", LANES)
@@ -232,6 +272,55 @@ def test_ties_come_out_in_id_order(card, lane):
     assert torch.equal(d.cpu(), rd) and torch.equal(i.cpu(), ri)
 
 
+@pytest.mark.parametrize("lane", LANES)
+def test_tc_fused_chain_k300_no_id_lost_or_repeated(card, lane):
+    # k = 300 chains three passes on the tensor-core K3, each above the last
+    # pair of the pass before: a pair that scored differently in two passes
+    # would repeat or vanish. Held against the plain version's chain.
+    for metric in METRICS:
+        q, x, aux, qn, m = _case(card, lane, metric, 9, 30000, 64, seed=11)
+        before = _fused_counts()
+        d, i = bfk.topk_fused(q, x, aux, 29999, 300, metric=m, query_norms=qn)
+        assert tuple(a - b for a, b in zip(_fused_counts(), before)) == (3, 0)
+        rd, ri = bfk.fused_topk_ref(q, x, aux, 29999, 301, metric=m, query_norms=qn)
+        assert all(len(set(row)) == 300 for row in i.tolist()), (lane, metric)
+        _assert_lists(lane, metric, (d, i.to(torch.int32)), (rd, ri))
+
+
+@pytest.mark.parametrize("lane", LANES)
+def test_tc_fused_all_ties_in_id_order_across_ranges(card, lane):
+    # Every row the same: every distance ties, so each list is decided by the
+    # id rule inside a range, across the kernel's ranges (B = 1 cuts 70,000
+    # rows into many) and across the chained passes' lower bound.
+    N, D, count = 70000, 64, 69001
+    row = np.arange(D) % 3 if lane in ("s8", "u8") else np.full(D, D ** -0.5)
+    x = torch.from_numpy(np.tile(row, (N, 1))).to(card, _DTYPES[lane])
+    q = x[:1].clone()
+    assert bfk._fused_tc_ranges(1, count, 132)[1] > 1
+    for k in (100, 300):
+        before = _fused_counts()
+        d, i = bfk.topk_fused(q, x, None, count, k, metric=VecSimMetric.IP)
+        assert tuple(a - b for a, b in zip(_fused_counts(), before)) == (-(-k // 128), 0)
+        assert torch.equal(i.cpu(), torch.arange(k)[None, :]), (lane, k)
+        assert torch.equal(d, d[:, :1].expand_as(d))
+
+
+def test_fused_counters_follow_the_gate(card):
+    # The tensor-core K3 launches only where the gate admits the rows: D = 37
+    # (no lane's row is a multiple of 16 bytes), D = 40 in the byte lanes and
+    # a view whose base is off 16 bytes go to the CUDA-core K3.
+    for lane, D, offset, want in (("f32", 37, 0, (0, 1)), ("s8", 40, 0, (0, 1)),
+                                  ("f32", 40, 0, (1, 0)), ("s8", 48, 0, (1, 0)),
+                                  ("bf16", 64, 1, (0, 1)), ("bf16", 64, 0, (1, 0))):
+        q, x, _, _, m = _case(card, lane, "IP", 5, 2000, D, seed=D)
+        x = x.flatten()[offset:offset + 1999 * D].view(1999, D)
+        assert bfk.fused_tc_admits(q, x) == (want == (1, 0))
+        before = _fused_counts()
+        d, i = bfk.fused_topk(q, x, None, 1999, 50, metric=m)
+        assert tuple(a - b for a, b in zip(_fused_counts(), before)) == want, (lane, D, offset)
+        _assert_lists(lane, "IP", (d, i), bfk.fused_topk_ref(q, x, None, 1999, 51, metric=m))
+
+
 def test_fused_lower_bound_between_two_distances(card):
     # A bound halfway between the 40th and 41st distance: the pass returns
     # the 41st on.
@@ -276,7 +365,7 @@ def test_index_on_card_matches_index_on_cpu(card, lane, monkeypatch):
     rng = np.random.default_rng(3)
     x, q = _rows(rng, 1500, 48, lane), _rows(rng, 9, 48, lane)
     tol = 1e-6 if lane in ("s8", "u8") else TOL
-    counts = lambda: (*_gm_counts(), bfk.fused_topk.launches, bfk.tile_topc.launches)
+    counts = lambda: (*_gm_counts(), *_fused_counts(), bfk.tile_topc.launches)
     for metric in METRICS:
         params = BFParams(type=_VTYPES[lane], dim=48, metric=VecSimMetric[metric])
         gpu, cpu = BruteForceIndex(params, device=card), BruteForceIndex(params, device="cpu")
@@ -284,8 +373,9 @@ def test_index_on_card_matches_index_on_cpu(card, lane, monkeypatch):
             idx.add_vector_batch(x, range(1500))
             for lab in range(0, 1500, 7):
                 idx.delete_vector(lab)
-        # k = 10 runs the tensor-core K1 (D = 48 passes its gate in every lane).
-        for k, want in ((10, (1, 0, 0, 0)), (64, (0, 0, 1, 0)), (200, (0, 0, 0, 1))):
+        # k = 10 and 64 run the tensor-core K1 and K3 (D = 48 passes their
+        # gate in every lane).
+        for k, want in ((10, (1, 0, 0, 0, 0)), (64, (0, 0, 1, 0, 0)), (200, (0, 0, 0, 0, 1))):
             before = counts()
             assert_replies_parity(gpu.topk_query_batch(q, k), cpu.topk_query_batch(q, k), tol)
             assert tuple(a - b for a, b in zip(counts(), before)) == want, (metric, k)

@@ -22,8 +22,8 @@ workaround), the ``dim % 128`` lane alignment (a TPU relayout copy), the
 VMEM budget and the fp32-precision gate (the port's fp32 lanes hold their
 products within 2^-20 relative, under the coverage eps, whatever
 ``torch``'s matmul precision setting). One gate is the port's own:
-``gm_tc_ok`` sends the group-min engine's shapes to its tensor-core kernel
-or its CUDA-core one.
+``gm_tc_ok`` sends the group-min and fused engines' shapes to their
+tensor-core kernels or their CUDA-core ones.
 """
 
 from __future__ import annotations
@@ -90,11 +90,12 @@ def gm_enabled(kind: str, k: int, capacity: int, dtype) -> bool:
 
 
 def gm_tc_ok(dim: int, dtype) -> bool:
-    """Gate of the group-min engine's tensor-core kernel
-    (``csrc/bf_topk_gm_tc.cu``): a store type with a scoring lane and a row
-    of ``dim`` elements whose byte length is a multiple of 16, the row
-    stride a TMA load needs. The wrapper sends every other shape to the
-    CUDA-core kernel (``csrc/bf_topk_gm.cu``) before launching."""
+    """Gate of the tensor-core kernels of the group-min and fused engines
+    (``csrc/bf_topk_gm_tc.cu``, ``csrc/bf_topk_fused_tc.cu``): a store type
+    with a scoring lane and a row of ``dim`` elements whose byte length is a
+    multiple of 16, the row stride a TMA load needs. The wrappers send every
+    other shape to the CUDA-core kernels (``csrc/bf_topk_gm.cu``,
+    ``csrc/bf_topk_fused.cu``) before launching."""
     lanes = _KERNEL_DTYPES["float"] + _KERNEL_DTYPES["int"]
     if dtype not in lanes or dim <= 0:
         return False

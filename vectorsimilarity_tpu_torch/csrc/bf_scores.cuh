@@ -1,5 +1,7 @@
-// Scoring prologue shared by the flat index's three top-k kernels
-// (bf_topk_gm.cu, bf_topk_fused.cu, bf_topk_topc.cu).
+// Scoring prologue shared by the flat index's CUDA-core top-k kernels
+// (bf_topk_gm.cu, bf_topk_fused.cu, bf_topk_topc.cu); its lane types and
+// metric epilogue `finish` also serve the tensor-core kernels
+// (bf_topk_gm_tc.cu, bf_topk_fused_tc.cu).
 //
 // Replaces: vectorsimilarity_tpu/ops/pallas/bf_topk.py `_tile_scores` (K2) and
 // the device half of `_mode_and_aux`. One block scores a tile of BM queries

@@ -1,6 +1,7 @@
-// Hopper device helpers of the tensor-core group-min kernel (bf_topk_gm_tc.cu):
-// mbarriers, TMA tile loads, wgmma shared-memory descriptors, and one
-// m64n128 wgmma per operand type, as inline PTX for sm_90a.
+// Hopper device helpers of the tensor-core kernels (the group-min kernel
+// bf_topk_gm_tc.cu, the fused top-k kernel bf_topk_fused_tc.cu): mbarriers,
+// TMA tile loads, wgmma shared-memory descriptors, and one m64n128 and one
+// m64n64 wgmma per operand type, as inline PTX for sm_90a.
 //
 // Shared-memory layout the helpers assume. Every operand tile is K-major: a
 // row of the tile is 128 bytes of depth (32 fp32, 64 bf16/fp16 or 128 int8
@@ -99,6 +100,19 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Named barrier that also returns whether any of the `threads` threads
+// passed `v` true (the barrier orders memory as bar.sync does).
+__device__ __forceinline__ bool bar_any(int id, int threads, bool v) {
+  uint32_t out;
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.u32 p, %1, 0;\nbar.red.or.pred q, %2, %3, p;\n"
+      "selp.u32 %0, 1, 0, q;\n}\n"
+      : "=r"(out)
+      : "r"((uint32_t)v), "r"(id), "r"(threads)
+      : "memory");
+  return out != 0;
+}
+
 // ------------------------------------------------------------------- wgmma
 
 // Descriptor of a K-major, 128-byte-swizzled tile at shared address `addr`
@@ -135,10 +149,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Keeps the compiler from moving accesses of accumulator registers across
 // the asynchronous wgmma that owns them.
-template <class T>
-__device__ __forceinline__ void fence_regs(T (&d)[64]) {
+template <class T, int N>
+__device__ __forceinline__ void fence_regs(T (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < N; ++i) {
     if constexpr (std::is_same<T, float>::value) asm volatile("" : "+f"(d[i])::"memory");
     else asm volatile("" : "+r"(d[i])::"memory");
   }
@@ -180,5 +194,33 @@ BFT_WGMMA(wgmma_s8, int, BFT_R, "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.
 BFT_WGMMA(wgmma_u8, int, BFT_R, "wgmma.mma_async.sync.aligned.m64n128k32.s32.u8.u8", "")
 
 #undef BFT_WGMMA
+
+#define BFT_REGS32                                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "    \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define BFT_32(C, d) BFT_8(C, d, 0), BFT_8(C, d, 8), BFT_8(C, d, 16), BFT_8(C, d, 24)
+
+// d[32] (+)= A[64 x 32 B] . B[64 x 32 B]^T: the m64n64 forms, for a B tile
+// of 64 rows. Accumulator i of thread t is element (row, col) with the
+// m64n128 formula above, i < 32.
+#define BFT_WGMMA_N64(NAME, T, CONSTRAINT, INSTR, TAIL)                                     \
+  __device__ __forceinline__ void NAME(T(&d)[32], uint64_t da, uint64_t db, uint32_t acc) { \
+    asm volatile(                                                                          \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" INSTR " " BFT_REGS32                  \
+        ", %32, %33, p" TAIL ";\n}\n"                                                       \
+        : BFT_32(CONSTRAINT, d)                                                            \
+        : "l"(da), "l"(db), "r"(acc));                                                      \
+  }
+
+BFT_WGMMA_N64(wgmma_tf32_n64, float, BFT_F, "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32",
+              ", 1, 1")
+BFT_WGMMA_N64(wgmma_bf16_n64, float, BFT_F,
+              "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16", ", 1, 1, 0, 0")
+BFT_WGMMA_N64(wgmma_f16_n64, float, BFT_F, "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16",
+              ", 1, 1, 0, 0")
+BFT_WGMMA_N64(wgmma_s8_n64, int, BFT_R, "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8", "")
+BFT_WGMMA_N64(wgmma_u8_n64, int, BFT_R, "wgmma.mma_async.sync.aligned.m64n64k32.s32.u8.u8", "")
+
+#undef BFT_WGMMA_N64
 
 }  // namespace bft

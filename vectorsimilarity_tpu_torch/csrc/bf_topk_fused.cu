@@ -24,6 +24,13 @@
 // operations on the CUDA cores, about 24 ms at 1M x 768 and B = 1024 in fp32
 // at 67 TFLOP/s, against one read of the store. A query inserts about
 // m (1 + ln(range_rows / m)) pairs per range.
+//
+// Since the tensor-core kernel (bf_topk_fused_tc.cu) came, this one serves
+// the shapes its gate refuses: rows whose byte length is not a multiple of 16
+// (config.gm_tc_ok) or tensors whose bases are not 16-byte aligned. Those are
+// exactly the shapes bf_scores.cuh's 16-byte vector loads refuse
+// (`can_vectorize`), so only the scalar-load variant of range_topm is built;
+// it takes any shape.
 
 #include "bf_select.cuh"
 
@@ -31,7 +38,7 @@ namespace {
 
 using namespace bfs;
 
-template <class Lane, bool VEC>
+template <class Lane>
 __global__ void __launch_bounds__(THREADS)
 fused_topk_kernel(const typename Lane::elem_t* __restrict__ q,
                   const typename Lane::elem_t* __restrict__ data, Aux aux,
@@ -41,17 +48,17 @@ fused_topk_kernel(const typename Lane::elem_t* __restrict__ q,
   extern __shared__ __align__(16) unsigned char smem[];
   const long long r_begin = (long long)blockIdx.x * range_rows;
   const long long r_end = r_begin + range_rows < N ? r_begin + range_rows : N;
-  range_topm<Lane, VEC>(q, data, aux, lo_d, lo_i, part_d, part_i, B, D, r_begin, r_end,
-                        (int)blockIdx.y * SEL_BM, (int)blockIdx.x, (int)gridDim.x, m, count,
-                        metric, smem);
+  range_topm<Lane, false>(q, data, aux, lo_d, lo_i, part_d, part_i, B, D, r_begin, r_end,
+                          (int)blockIdx.y * SEL_BM, (int)blockIdx.x, (int)gridDim.x, m, count,
+                          metric, smem);
 }
 
-template <class Lane, bool VEC>
+template <class Lane>
 int launch(const void* q, const void* data, Aux aux, const float* lo_d, const int* lo_i,
            float* part_d, int* part_i, int B, int D, int N, int range_rows, int n_ranges, int m,
            int count, int metric, cudaStream_t stream) {
   using E = typename Lane::elem_t;
-  auto kernel = fused_topk_kernel<Lane, VEC>;
+  auto kernel = fused_topk_kernel<Lane>;
   const size_t bytes = select_smem_bytes(m);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -81,10 +88,22 @@ extern "C" int bf_topk_fused(const void* q, const void* data, const float* qaux_
     return (int)cudaErrorInvalidValue;
   const Aux aux = {qaux_f, qaux_i, raux};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FUSED_CALL(Lane, VEC)                                                                  \
-  return launch<Lane, VEC>(q, data, aux, lo_d, lo_i, part_d, part_i, B, D, N, range_rows,      \
-                           n_ranges, m, count, metric, s)
-  BFS_DISPATCH(lane, q, data, D, FUSED_CALL)
+#define FUSED_CALL(Lane)                                                                   \
+  return launch<Lane>(q, data, aux, lo_d, lo_i, part_d, part_i, B, D, N, range_rows, n_ranges, \
+                      m, count, metric, s)
+  switch (lane) {
+    case LANE_F32:
+      FUSED_CALL(LaneF32);
+    case LANE_BF16:
+      FUSED_CALL(LaneBF16);
+    case LANE_F16:
+      FUSED_CALL(LaneF16);
+    case LANE_S8:
+      FUSED_CALL(LaneS8);
+    case LANE_U8:
+      FUSED_CALL(LaneU8);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 #undef FUSED_CALL
-  return (int)cudaErrorInvalidValue;
 }

@@ -29,9 +29,13 @@ hide in an unselected group). Any true top-k row lies in a group whose
 minimum is <= the true k-th distance, so it can be missed only if that group
 ranks below the S suspects, which the flag detects.
 
-K3 (``csrc/bf_topk_fused.cu``) returns the exact k <= 128 smallest (distance,
-id) pairs per query, optionally above a per-query lower bound; ``topk_fused``
-chains passes of 128 on that bound for larger k.
+K3 returns the exact k <= 128 smallest (distance, id) pairs per query,
+optionally above a per-query lower bound; ``topk_fused`` chains passes of 128
+on that bound for larger k. It too has two kernels, chosen the same way: the
+tensor-core one (``csrc/bf_topk_fused_tc.cu``: K1's wgmma + TMA scoring, a
+threshold filter in registers and a merge of candidate buffers into sorted
+lists) where ``fused_tc_admits``, and the CUDA-core one
+(``csrc/bf_topk_fused.cu``) for the rest.
 
 K4 (``csrc/bf_topk_topc.cu``) returns each tile's c smallest pairs; the host
 part takes one exact top-k over the survivors and flags a query as truncated
@@ -68,7 +72,7 @@ from ...types import VecSimMetric
 from ..distances import _lex_topk, _merge_topk, scores_float, scores_int, streaming_topk
 
 _CSRC = Path(__file__).resolve().parents[2] / "csrc"
-_SOURCES = ("bf_topk_gm", "bf_topk_gm_tc", "bf_topk_fused", "bf_topk_topc")
+_SOURCES = ("bf_topk_gm", "bf_topk_gm_tc", "bf_topk_fused", "bf_topk_fused_tc", "bf_topk_topc")
 _HEADERS = ("bf_scores.cuh", "bf_select.cuh", "bf_tc.cuh")
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 # No --use_fast_math: the integer Cosine lane needs IEEE divides.
@@ -77,9 +81,12 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 PASS_K = 128  # longest list of the fused kernel; larger k chains passes
 MAX_C = 128  # longest per-tile list of the top-c kernel
-_FUSED_BM = 64  # queries per block of the fused kernel (csrc/bf_select.cuh)
-_FUSED_BLOCKS = 528  # blocks the fused kernel's grid aims for: 4 per SM
+# Queries per block of both fused kernels (csrc/bf_select.cuh SEL_BM,
+# csrc/bf_topk_fused_tc.cu BM).
+_FUSED_BM = 64
+_FUSED_BLOCKS = 528  # blocks the CUDA-core fused kernel's grid aims for: 4 per SM
 _FUSED_MIN_ROWS = 1024  # shortest row range worth a block of its own
+_SUB_ROWS = 128  # store rows per sub-tile of both fused kernels; ranges are a multiple
 
 # Lane codes of the C entry points (csrc/bf_scores.cuh).
 _LANES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8: 3, torch.uint8: 4}
@@ -96,6 +103,7 @@ class _Kernels:
         self.gm = self._fn("bf_topk_gm", [ptr] * 6 + [num] * 8 + [ptr])
         self.gm_tc = self._fn("bf_topk_gm_tc", [ptr] * 7 + [num] * 8 + [ptr])
         self.fused = self._fn("bf_topk_fused", [ptr] * 9 + [num] * 9 + [ptr])
+        self.fused_tc = self._fn("bf_topk_fused_tc", [ptr] * 10 + [num] * 9 + [ptr])
         self.topc = self._fn("bf_topk_topc", [ptr] * 7 + [num] * 8 + [ptr])
 
     def _fn(self, name: str, argtypes: list):
@@ -498,7 +506,7 @@ def _fused_ranges(B: int, N: int) -> tuple:
     sub-tiles."""
     want = max(1, -(-_FUSED_BLOCKS // -(-B // _FUSED_BM)))
     rows = max(_FUSED_MIN_ROWS, -(-N // want))
-    rows = -(-rows // 128) * 128
+    rows = -(-rows // _SUB_ROWS) * _SUB_ROWS
     return rows, -(-N // rows)
 
 
@@ -511,10 +519,13 @@ def fused_topk(queries: torch.Tensor, data: torch.Tensor, sqnorms: Optional[torc
     [B] fp32, lo_i [B] int32) only pairs lex-greater than a query's bound
     count.
 
-    CUDA tensors launch the kernel, which writes one sorted list per query
-    and row range; the lists of a query are merged here with one exact
-    top-k (``fused_topk.launches`` counts the launches). CPU tensors take
-    ``fused_topk_ref``; anything else raises.
+    CUDA tensors launch one of K3's two kernels, chosen before the launch,
+    each writing one sorted list per query and row range; the lists of a
+    query are merged here with one exact top-k. The tensor-core kernel
+    (``csrc/bf_topk_fused_tc.cu``, counted in ``fused_topk.tc_launches``)
+    takes what ``fused_tc_admits``, the CUDA-core kernel
+    (``csrc/bf_topk_fused.cu``, ``fused_topk.launches``) the rest. CPU
+    tensors take ``fused_topk_ref``; anything else raises.
     """
     metric = VecSimMetric(metric)
     _check(queries, data, sqnorms, metric, query_norms)
@@ -526,22 +537,61 @@ def fused_topk(queries: torch.Tensor, data: torch.Tensor, sqnorms: Optional[torc
                               query_norms=query_norms)
     B, D = queries.shape
     N = data.shape[0]
-    rows, n_ranges = _fused_ranges(B, N)
+    count = max(0, min(int(count), N))
+    tc = fused_tc_admits(queries, data)
+    if tc:
+        # A device other than CUDA (meta) has no SM count; _run refuses it.
+        sms = (torch.cuda.get_device_properties(data.device).multi_processor_count
+               if data.device.type == "cuda" else 1)
+        rows, n_ranges = _fused_tc_ranges(B, count, sms)
+    else:
+        rows, n_ranges = _fused_ranges(B, N)
     qf, qi, rf = _lane_aux(queries, sqnorms, metric, query_norms)
     lo_d, lo_i = lo if lo is not None else (None, None)
     part_d = torch.empty((B, n_ranges, k), dtype=torch.float32, device=data.device)
     part_i = torch.empty((B, n_ranges, k), dtype=torch.int32, device=data.device)
-    _run(fused_topk, "bf_topk_fused", data, lambda kern, stream: kern.fused(
-        queries.data_ptr(), data.data_ptr(), _ptr(qf), _ptr(qi), _ptr(rf), _ptr(lo_d),
-        _ptr(lo_i), part_d.data_ptr(), part_i.data_ptr(), _LANES[data.dtype], B, D, N,
-        rows, n_ranges, k, min(int(count), N), int(metric), stream))
+    if tc:
+        dsq = None  # integer L2: the rows' sums of squares, written by the call
+        if not data.dtype.is_floating_point and metric == VecSimMetric.L2:
+            dsq = torch.empty((max(count, 1),), dtype=torch.int32, device=data.device)
+        _run(fused_topk, "bf_topk_fused_tc", data, lambda kern, stream: kern.fused_tc(
+            queries.data_ptr(), data.data_ptr(), _ptr(qf), _ptr(qi), _ptr(rf), _ptr(dsq),
+            _ptr(lo_d), _ptr(lo_i), part_d.data_ptr(), part_i.data_ptr(), _LANES[data.dtype],
+            B, D, N, rows, n_ranges, k, count, int(metric), stream), counter="tc_launches")
+    else:
+        _run(fused_topk, "bf_topk_fused", data, lambda kern, stream: kern.fused(
+            queries.data_ptr(), data.data_ptr(), _ptr(qf), _ptr(qi), _ptr(rf), _ptr(lo_d),
+            _ptr(lo_i), part_d.data_ptr(), part_i.data_ptr(), _LANES[data.dtype], B, D, N,
+            rows, n_ranges, k, count, int(metric), stream))
     # Lists are lex-sorted and ranges are in id order, so _lex_topk's
     # lower-position rule on equal distances is the lower-id rule.
     vals, pos = _lex_topk(part_d.view(B, n_ranges * k), k)
     return vals, torch.gather(part_i.view(B, n_ranges * k), 1, pos)
 
 
-fused_topk.launches = 0
+fused_topk.launches = 0  # CUDA-core kernel
+fused_topk.tc_launches = 0  # tensor-core kernel
+
+
+def fused_tc_admits(queries: torch.Tensor, data: torch.Tensor) -> bool:
+    """Whether the tensor-core K3 takes these tensors. It is the shared TMA
+    gate of both tensor-core kernels, ``gm_tc_admits`` (``config.gm_tc_ok``
+    on the row width and type, 16-byte aligned bases), named for K3's
+    wrapper; the tensors it refuses go to the CUDA-core K3."""
+    return gm_tc_admits(queries, data)
+
+
+def _fused_tc_ranges(B: int, rows_live: int, sms: int) -> tuple:
+    """(rows per range, number of ranges) of a tensor-core fused launch over
+    the first ``rows_live`` rows: one block per SM in one wave (``sms //
+    query blocks`` ranges, at least one), ranges a whole number of the
+    kernel's 128-row sub-tiles and at least ``_FUSED_MIN_ROWS`` long. Fewer,
+    longer ranges mean fewer list inserts; the grid is one wave because
+    every block of a launch does the same work."""
+    want = max(1, sms // -(-B // _FUSED_BM))
+    rows = max(_FUSED_MIN_ROWS, -(-rows_live // want))
+    rows = -(-rows // _SUB_ROWS) * _SUB_ROWS
+    return rows, max(1, -(-rows_live // rows))
 
 
 def fused_topk_ref(queries: torch.Tensor, data: torch.Tensor,
