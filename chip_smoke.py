@@ -18,15 +18,18 @@ check:
    one (`bf_topk_gm_tc.cu`) for the shapes `config.gm_tc_ok` admits and the
    CUDA-core one (`bf_topk_gm.cu`) for the rest; each shape asserts which
    launch counter moved.
-4. Hold every kernel (both K1s, both fused top-k K3s, per-tile top-c K4) in
-   every lane (fp32, bf16, fp16, int8, uint8) against its plain version at
-   small odd shapes: B = 1, 7, 130, count off the grid, k > count, dims that
-   are not multiples of 4 or 16 (D = 37 and 40 go to the CUDA-core K1 and
-   K3 in int8), all three metrics; the tensor-core K3 also at m = 1, 40,
-   100, 128 with and without a lower bound. Float lanes within 1e-5 with
-   ids equal except at near-ties; integer lanes equal (Cosine, which rounds
-   one fp32 divide, within 1e-6). K1 and K3 each have a tensor-core kernel
-   (for the rows `config.gm_tc_ok` admits) and a CUDA-core one; every call
+4. Hold every kernel (both K1s, both fused top-k K3s, both per-tile top-c
+   K4s) in every lane (fp32, bf16, fp16, int8, uint8) against its plain
+   version at small odd shapes: B = 1, 7, 130, count off the grid, k > count,
+   dims that are not multiples of 4 or 16 (D = 37 and 40 go to the CUDA-core
+   K1, K3 and K4 in int8), all three metrics; the tensor-core K3 also at m =
+   1, 40, 100, 128 with and without a lower bound, the tensor-core K4 at
+   tile_n = 128, 512, 4096, c = 1, 32, 128, count = 0 and counts that leave
+   whole tiles empty. Float lanes within 1e-5 with ids equal except at
+   near-ties (judged on the plain version's next pair); integer lanes equal
+   (Cosine, which rounds one fp32 divide, within 1e-6). K1, K3 and K4 each
+   have a tensor-core kernel (for the rows `config.gm_tc_ok` admits; K4 also
+   needs tiles of a multiple of 128 rows) and a CUDA-core one; every call
    asserts which launch counter moved. At the headline store with B = 1
    (fp32, Cosine), the tensor-core K1, the tensor-core K3 (k = 100) and the
    CUDA-core K3 (at ``CC_DIM``) are held against their plain versions and
@@ -38,18 +41,19 @@ check:
    With every launch and fallback count set to 0 just before,
    ``topk_query_batch`` (host API) and ``search_knn_device`` (B = 1024) run
    at k = 10 (group-min), k = 100 (fused) and k = 500 (top-c); each engine's
-   kernel must have launched (at k = 10 the tensor-core K1 and at k = 100
-   the tensor-core K3, the CUDA-core ones never) and no fallback may have
-   run; 32 queries per k are
+   tensor-core kernel must have launched (K1, K3, K4; the CUDA-core ones
+   never) and no fallback may have run; 32 queries per k are
    held against an exact float64 ground truth. Then each kernel is held
    against its plain version at the full-width shape and both are timed,
    beside the bare product at the same shape (``product_ms``:
    ``torch.matmul`` with TF32 off, or ``torch._int_mm``; none for uint8).
-   The CUDA-core K1 and K3 are timed at the same size with rows cut to a
-   width the tensor-core gate refuses (``CC_DIM``), the shapes they serve.
+   The CUDA-core K1, K3 and K4 are timed at the same size with rows cut to
+   a width the tensor-core gate refuses (``CC_DIM``), the shapes they serve.
    The tensor-core K3 is also timed at IP, for the cost of its Cosine
-   epilogue. The QPS of
-   ``search_knn_device`` is taken per k.
+   epilogue, and the tensor-core K4 against its own kernel writing one list
+   per range instead of one per tile (K3's configuration at m = c), for the
+   cost of the per-tile list resets. The QPS of ``search_knn_device`` is
+   taken per k.
 6. An all-ties store must trip the group-min fallback, and a store with all
    near rows in one tile must trip the top-c truncation fallback; both must
    still answer exactly.
@@ -95,7 +99,7 @@ PEAK_OPS = {"f32": 989e12, "f16": 989e12, "bf16": 989e12, "s8": 1979e12, "u8": 1
 PASSES = {"f32": 3, "f16": 1, "bf16": 1, "s8": 1, "u8": 1}
 TF32_PEAK = 495e12
 PEAK_BYTES = 3.35e12
-# Row width at which the CUDA-core K1 and K3 are timed at full width: the widest
+# Row width at which the CUDA-core K1, K3 and K4 are timed at full width: the widest
 # below the headline's 768 that the tensor-core gate refuses (a row not a
 # multiple of 16 bytes), and for int8 one torch._int_mm takes (a multiple of 8).
 CC_DIM = {"f32": 767, "f16": 767, "bf16": 767, "s8": 760, "u8": 760}
@@ -108,6 +112,8 @@ KERNELS = {  # kernel -> (C entry point, source, TPU kernel it replaces)
                  "vectorsimilarity_tpu/ops/pallas/bf_topk.py:196"),
     "fused": ("bf_topk_fused", "vectorsimilarity_tpu_torch/csrc/bf_topk_fused.cu",
               "vectorsimilarity_tpu/ops/pallas/bf_topk.py:196"),
+    "topc_tc": ("bf_topk_topc_tc", "vectorsimilarity_tpu_torch/csrc/bf_topk_fused_tc.cu",
+                "vectorsimilarity_tpu/ops/pallas/bf_topk.py:742"),
     "topc": ("bf_topk_topc", "vectorsimilarity_tpu_torch/csrc/bf_topk_topc.cu",
              "vectorsimilarity_tpu/ops/pallas/bf_topk.py:742"),
 }
@@ -123,8 +129,9 @@ SMALL_SHAPES = [
     (5, 2, 1024, 128, 37, 2000, "IP"),
 ]
 # (B, N, dim, count, tile_n, group_n, c, k) — small odd shapes of every
-# kernel and lane: B = 1, 7, 130; counts off the tile grid; dims off the
-# 4- and 16-element vector loads; k above count; a tile below 128 rows.
+# kernel and lane: B = 1, 7, 130; counts off the tile grid; dims whose rows
+# are not a multiple of 16 bytes in some lane (37; 40 in the byte lanes); k
+# above count; a tile below 128 rows.
 LANE_SHAPES = [
     (1, 4096, 37, 3001, 1024, 256, 32, 100),
     (7, 2048, 40, 50, 512, 128, 16, 64),
@@ -149,6 +156,16 @@ FUSED_TC_SHAPES = [
     (130, 20000, 96, 19999, 100, None),
     (130, 9000, 48, 8800, 1, None),
     (7, 70000, 128, 69001, 128, 60),
+]
+# (B, N, dim, count, tile_n, c) — per-tile top-c shapes every lane's
+# tensor-core K4 takes: B = 1, 7, 130, tile_n = 128, 512, 4096, c = 1, 32,
+# 128, a count inside a tile, counts that leave whole tiles empty (some past
+# every range: the wrapper fills those), count = 0, ranges of several tiles.
+TOPC_TC_SHAPES = [
+    (1, 8192, 768, 7001, 4096, 32),
+    (7, 4096, 96, 1500, 512, 128),
+    (130, 16384, 48, 16000, 128, 1),
+    (130, 4096, 64, 0, 128, 32),
 ]
 
 
@@ -239,10 +256,11 @@ def phase_build():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 name = m.group(1)
-                lane = re.search(r"Lane(\w+?)EL([bi])(\d)", name)
-                entry = (f"{lane.group(1)} {'vec' if lane.group(2) == 'b' else 'metric'}="
-                         f"{lane.group(3)}" if lane else
-                         "row_sumsq" if "row_sumsq" in name else name)
+                lane = re.search(r"Lane(\w+?)E(?:Li(\d))?", name)
+                entry = ("row_sumsq" if "row_sumsq" in name else
+                         name if lane is None else
+                         lane.group(1) if lane.group(2) is None else
+                         f"{lane.group(1)} metric={lane.group(2)}")
                 spills = ""
             elif "spill" in line:
                 spills = line.strip()
@@ -284,6 +302,37 @@ def fused_checked(q, x, aux, count, k, want=None, **kw):
         raise AssertionError(f"{tuple(x.shape)} {x.dtype}: launches moved {moved}, want "
                              f"{want or which}")
     return out, which
+
+
+def topc_checked(q, x, aux, count, want=None, **kw):
+    """tile_topc through the wrapper, asserting that the kernel the gate
+    names (and ``want``, if given) launched once and the other not at all.
+    Returns (lists, which kernel: "topc_tc" or "topc")."""
+    from vectorsimilarity_tpu_torch.ops.kernels import bf_topk as bfk
+
+    w = bfk.tile_topc
+    before = (w.tc_launches, w.launches)
+    out = w(q, x, aux, count, **kw)
+    which = "topc_tc" if bfk.topc_tc_admits(q, x, kw["tile_n"]) else "topc"
+    moved = (w.tc_launches - before[0], w.launches - before[1])
+    if moved != ((1, 0) if which == "topc_tc" else (0, 1)) or want not in (None, which):
+        raise AssertionError(f"{tuple(x.shape)} {x.dtype}: launches moved {moved}, want "
+                             f"{want or which}")
+    return out, which
+
+
+def flat_lists(pair):
+    """[B, n_tiles, c] lists as [B * n_tiles, c]."""
+    return tuple(t.reshape(-1, t.shape[-1]) for t in pair)
+
+
+def topc_plain(q, x, aux, count, *, c, tile_n, **kw):
+    """The plain K4 with the next pair of each tile where it has one, for
+    the near-tie at a tile's c-th slot (the tensor-core fp32 lane rounds
+    apart from the plain IEEE fp32)."""
+    from vectorsimilarity_tpu_torch.ops.kernels import bf_topk as bfk
+
+    return bfk.tile_topc_ref(q, x, aux, count, c=min(c + 1, tile_n), tile_n=tile_n, **kw)
 
 
 def check_kernel(dev, shapes):
@@ -381,8 +430,9 @@ def lower_bound(tol, rd, ri, slot):
 
 def check_lanes(dev):
     """Every kernel and lane vs its plain version at LANE_SHAPES (the K1s
-    also at GM_TC_SHAPES, the tensor-core K3 at FUSED_TC_SHAPES), all three
-    metrics. Returns {(kernel, lane): max abs error}."""
+    also at GM_TC_SHAPES, the tensor-core K3 at FUSED_TC_SHAPES, the
+    tensor-core K4 at TOPC_TC_SHAPES), all three metrics. Returns {(kernel,
+    lane): max abs error}."""
     from vectorsimilarity_tpu_torch.ops.kernels import bf_topk as bfk
     from vectorsimilarity_tpu_torch.types import VecSimMetric
 
@@ -410,11 +460,10 @@ def check_lanes(dev):
                 got, which = fused_checked(q, x, aux, count, k, **kw)
                 ref = bfk.fused_topk_ref(q, x, aux, count, k + 1, **kw)
                 worst[which, lane] = max(worst[which, lane], lists_error(got, ref, tol))
-                got = bfk.tile_topc(q, x, aux, count, tile_n=tile_n, c=c, **kw)
-                ref = bfk.tile_topc_ref(q, x, aux, count, tile_n=tile_n, c=c, **kw)
-                flat = lambda pair: tuple(t.reshape(-1, c) for t in pair)
-                worst["topc", lane] = max(worst["topc", lane],
-                                          lists_error(flat(got), flat(ref), tol))
+                got, which = topc_checked(q, x, aux, count, tile_n=tile_n, c=c, **kw)
+                ref = topc_plain(q, x, aux, count, tile_n=tile_n, c=c, **kw)
+                worst[which, lane] = max(worst[which, lane],
+                                         lists_error(flat_lists(got), flat_lists(ref), tol))
             for B, n, dim, count, k, bound in FUSED_TC_SHAPES:
                 q, x, aux, qn = lane_case(dev, gen, lane, mname, B, n, dim)
                 kw = dict(metric=VecSimMetric[mname], query_norms=qn)
@@ -424,12 +473,18 @@ def check_lanes(dev):
                 got, _ = fused_checked(q, x, aux, count, k, "fused_tc", **kw)
                 ref = bfk.fused_topk_ref(q, x, aux, count, k + 1, **kw)
                 worst["fused_tc", lane] = max(worst["fused_tc", lane], lists_error(got, ref, tol))
+            for B, n, dim, count, tile_n, c in TOPC_TC_SHAPES:
+                q, x, aux, qn = lane_case(dev, gen, lane, mname, B, n, dim)
+                kw = dict(metric=VecSimMetric[mname], query_norms=qn, tile_n=tile_n, c=c)
+                got, _ = topc_checked(q, x, aux, count, "topc_tc", **kw)
+                ref = topc_plain(q, x, aux, count, **kw)
+                worst["topc_tc", lane] = max(worst["topc_tc", lane],
+                                             lists_error(flat_lists(got), flat_lists(ref), tol))
         torch.cuda.synchronize()
-        print(f"# {lane}: gm_tc, gm, fused_tc, fused, topc vs plain at {len(gm_shapes)} (K1), "
-              f"{len(LANE_SHAPES) + len(FUSED_TC_SHAPES)} (K3) and {len(LANE_SHAPES)} (K4) odd "
-              f"shapes x 3 metrics: max abs err {worst['gm_tc', lane]:.3e}, "
-              f"{worst['gm', lane]:.3e}, {worst['fused_tc', lane]:.3e}, "
-              f"{worst['fused', lane]:.3e}, {worst['topc', lane]:.3e}", flush=True)
+        print(f"# {lane}: {', '.join(KERNELS)} vs plain at {len(gm_shapes)} (K1), "
+              f"{len(LANE_SHAPES) + len(FUSED_TC_SHAPES)} (K3) and "
+              f"{len(LANE_SHAPES) + len(TOPC_TC_SHAPES)} (K4) odd shapes x 3 metrics: max abs "
+              f"err {', '.join(f'{worst[k, lane]:.3e}' for k in KERNELS)}", flush=True)
     return worst
 
 
@@ -527,8 +582,9 @@ def full_width(lane, store, norms, raw_queries, smi, small_err):
     counters = {"gm_tc": (bfk.group_min_scores, "tc_launches"),
                 "gm": (bfk.group_min_scores, "launches"),
                 "fused_tc": (bfk.fused_topk, "tc_launches"),
-                "fused": (bfk.fused_topk, "launches"), "topc": (bfk.tile_topc, "launches")}
-    engine_of = dict(zip(KS, ("gm_tc", "fused_tc", "topc")))
+                "fused": (bfk.fused_topk, "launches"),
+                "topc_tc": (bfk.tile_topc, "tc_launches"), "topc": (bfk.tile_topc, "launches")}
+    engine_of = dict(zip(KS, ("gm_tc", "fused_tc", "topc_tc")))
 
     # The main path, counts at 0 just before and read just after.
     for w, attr in counters.values():
@@ -541,7 +597,7 @@ def full_width(lane, store, norms, raw_queries, smi, small_err):
     torch.cuda.synchronize()
     launches = {name: getattr(w, attr) for name, (w, attr) in counters.items()}
     fallbacks = {"gm_tc": bfk.topk_gm_exact.fallbacks, "gm": 0, "fused_tc": 0, "fused": 0,
-                 "topc": bfk.topk_bigk_exact.fallbacks}
+                 "topc_tc": bfk.topk_bigk_exact.fallbacks, "topc": 0}
     print(f"# main path {lane}: launches {launches}, fallbacks {fallbacks}", flush=True)
     if any(launches[e] < 2 for e in engine_of.values()):
         raise AssertionError("an engine of the main path did not launch its kernel")
@@ -549,6 +605,8 @@ def full_width(lane, store, norms, raw_queries, smi, small_err):
         raise AssertionError("the main path ran the CUDA-core K1, not the tensor-core one")
     if launches["fused"]:
         raise AssertionError("the main path ran the CUDA-core K3, not the tensor-core one")
+    if launches["topc"]:
+        raise AssertionError("the main path ran the CUDA-core K4, not the tensor-core one")
     if any(fallbacks.values()):
         raise AssertionError("an exact fallback ran on random data")
 
@@ -571,15 +629,16 @@ def full_width(lane, store, norms, raw_queries, smi, small_err):
     kw = dict(metric=metric, query_norms=qnorms)
     gm_kw = dict(tile_n=TILE_N, group_n=GROUP_N, **kw)
     topc_kw = dict(tile_n=TILE_N, c=LOCAL_C, **kw)
-    flat = lambda pair: tuple(t.reshape(-1, LOCAL_C) for t in pair)
     gm_cmp = lambda got, ref: gm_error(got, ref)[0]
-    # The CUDA-core K1's and K3's shape: the same rows and queries cut to CC_DIM.
+    # The CUDA-core kernels' shape: the same rows and queries cut to CC_DIM.
     cut = lambda t: t[:, :CC_DIM[lane]].contiguous()
     cq, cx = cut(queries), cut(store)
     cn, cqn = (None, None) if norms is None else (int_norms(cx), int_norms(cq))
     cc_kw = dict(gm_kw, query_norms=cqn)
     cc_fused_kw = dict(kw, query_norms=cqn)
+    cc_topc_kw = dict(topc_kw, query_norms=cqn)
     lists_cmp = lambda got, ref: lists_error(got, ref, tol)
+    topc_cmp = lambda got, ref: lists_error(flat_lists(got), flat_lists(ref), tol)
     calls = {
         "gm_tc": (lambda: gm_checked(queries, store, norms, N, "gm_tc", **gm_kw)[0],
                   lambda: bfk.group_min_scores_ref(queries, store, norms, N, **gm_kw), gm_cmp),
@@ -592,15 +651,18 @@ def full_width(lane, store, norms, raw_queries, smi, small_err):
         "fused": (lambda: fused_checked(cq, cx, cn, N, KS[1], "fused", **cc_fused_kw)[0],
                   lambda: bfk.fused_topk_ref(cq, cx, cn, N, KS[1], **cc_fused_kw), lists_cmp,
                   lambda: bfk.fused_topk_ref(cq, cx, cn, N, KS[1] + 1, **cc_fused_kw)),
-        "topc": (lambda: bfk.tile_topc(queries, store, norms, N, **topc_kw),
-                 lambda: bfk.tile_topc_ref(queries, store, norms, N, **topc_kw),
-                 lambda got, ref: lists_error(flat(got), flat(ref), tol)),
+        "topc_tc": (lambda: topc_checked(queries, store, norms, N, "topc_tc", **topc_kw)[0],
+                    lambda: bfk.tile_topc_ref(queries, store, norms, N, **topc_kw), topc_cmp,
+                    lambda: topc_plain(queries, store, norms, N, **topc_kw)),
+        "topc": (lambda: topc_checked(cq, cx, cn, N, "topc", **cc_topc_kw)[0],
+                 lambda: bfk.tile_topc_ref(cq, cx, cn, N, **cc_topc_kw), topc_cmp),
     }
     gm_out = BATCH * (CAP // TILE_N) * GROUP_N * 4
+    topc_out = BATCH * (CAP // TILE_N) * LOCAL_C * 8
     out_bytes = {"gm_tc": gm_out, "gm": gm_out, "fused_tc": BATCH * KS[1] * 8,
-                 "fused": BATCH * KS[1] * 8, "topc": BATCH * (CAP // TILE_N) * LOCAL_C * 8}
+                 "fused": BATCH * KS[1] * 8, "topc_tc": topc_out, "topc": topc_out}
     aux_bytes = 0 if norms is None else (N + BATCH) * 4
-    dims = {name: CC_DIM[lane] if name in ("gm", "fused") else DIM for name in calls}
+    dims = {name: CC_DIM[lane] if name in ("gm", "fused", "topc") else DIM for name in calls}
     prods = {DIM: product_ms(lane, queries, store), CC_DIM[lane]: product_ms(lane, cq, cx)}
     if lane == "f32":
         tf32_ms = 1e3 * PASSES[lane] * 2.0 * BATCH * N * DIM / TF32_PEAK
@@ -608,7 +670,8 @@ def full_width(lane, store, norms, raw_queries, smi, small_err):
               f"{tf32_ms:.3f} ms at {N} x {DIM}, B={BATCH}", flush=True)
     rows = {}
     # (kernel, plain version, comparison[, the plain call it compares with:
-    # K3's carries one slot more, for the near-tie at the last slot])
+    # the tensor-core K3's and K4's carry one slot more, for the near-tie at
+    # the last slot])
     for name, (kernel, plain, compare, *check) in calls.items():
         err = compare(kernel(), (check[0] if check else plain)())
         if not err <= tol:
@@ -637,6 +700,7 @@ def full_width(lane, store, norms, raw_queries, smi, small_err):
                                           **ip_kw), 3)
     print(f"# {rows['fused_tc']['name']} at {N} x {DIM}, B={BATCH}, k={KS[1]}: IP "
           f"{ip_ms:.3f} ms, Cosine {rows['fused_tc']['ms']:.3f} ms; card {smi}", flush=True)
+    reset_trial(lane, queries, store, norms, qnorms, smi)
 
     # QPS of the device path, one engine per k.
     staged = [queries, queries.flip(0).contiguous()]
@@ -651,11 +715,51 @@ def full_width(lane, store, norms, raw_queries, smi, small_err):
             torch.cuda.synchronize()
             rounds.append(len(staged) * BATCH / (time.perf_counter() - t0))
         row["qps"] = statistics.median(rounds)
+        batch_ms = 1000 * BATCH / row["qps"]
         print(f"# search_knn_device {N} x {DIM} {lane} cosine, B={BATCH}, k={k} "
               f"({engine_of[k]}): {row['qps']:.1f} QPS (median of "
-              f"{[round(r, 1) for r in rounds]}), {1000 * BATCH / row['qps']:.2f} ms per batch; "
-              f"card {smi}", flush=True)
+              f"{[round(r, 1) for r in rounds]}), {batch_ms:.2f} ms per batch, of which "
+              f"{batch_ms - row['ms']:.2f} outside the kernel; card {smi}", flush=True)
     return list(rows.values())
+
+
+def reset_trial(lane, queries, store, norms, qnorms, smi):
+    """The cost of the tensor-core K4's per-tile list resets: its kernel at
+    the headline's split (the same ranges of whole tiles, c = LOCAL_C) once
+    with one list per tile (K4) and once with one list per range (K3's
+    configuration, ``bf_topk_fused_tc`` at m = c), both called bare through
+    the C entry points, so no wrapper counts them."""
+    from vectorsimilarity_tpu_torch.ops.kernels import bf_topk as bfk
+    from vectorsimilarity_tpu_torch.types import VecSimMetric
+
+    kern = bfk.load_kernel()
+    metric = VecSimMetric.Cosine
+    n_tiles = CAP // TILE_N
+    tiles, n_ranges = bfk._topc_tc_ranges(BATCH, -(-N // TILE_N), bfk._sms(store.device))
+    qf, qi, rf = (bfk._ptr(t) for t in bfk._lane_aux(queries, norms, metric, qnorms))
+    out_d = torch.empty((BATCH, n_tiles, LOCAL_C), dtype=torch.float32, device=store.device)
+    out_i = torch.empty((BATCH, n_tiles, LOCAL_C), dtype=torch.int32, device=store.device)
+    code, stream = bfk._LANES[store.dtype], torch.cuda.current_stream().cuda_stream
+    head = (queries.data_ptr(), store.data_ptr(), qf, qi, rf, None)
+
+    def ok(err):
+        if err != 0:
+            raise AssertionError(f"reset trial launch failed: cudaError_t {err}")
+
+    per_tile = lambda: ok(kern.topc_tc(*head, out_d.data_ptr(), out_i.data_ptr(), code, BATCH,
+                                       DIM, n_tiles, TILE_N, LOCAL_C, N, tiles, n_ranges,
+                                       int(metric), stream))
+    per_range = lambda: ok(kern.fused_tc(*head, None, None, out_d.data_ptr(), out_i.data_ptr(),
+                                         code, BATCH, DIM, CAP, tiles * TILE_N, n_ranges,
+                                         LOCAL_C, N, int(metric), stream))
+    # In turns: a list per range, per tile, per tile, per range.
+    r0, t0, t1, r1 = (time_ms(f, 3) for f in (per_range, per_tile, per_tile, per_range))
+    range_ms, tile_ms = (r0 + r1) / 2, (t0 + t1) / 2
+    print(f"# reset trial {lane} at {N} x {DIM}, B={BATCH}, {n_ranges} ranges of {tiles} tiles, "
+          f"m = {LOCAL_C}: a list per tile {tile_ms:.3f} ms ({t0:.3f}, {t1:.3f}), a list per "
+          f"range {range_ms:.3f} ms ({r0:.3f}, {r1:.3f}); "
+          f"the resets cost {tile_ms - range_ms:.3f} ms ({(tile_ms - range_ms) / tile_ms:.1%} of "
+          f"K4); card {smi}", flush=True)
 
 
 def phase_fallbacks(dev):
@@ -692,16 +796,19 @@ def phase_fallbacks(dev):
     k = 160
     if not config.bigk_enabled("float", 256, 64 * TILE_N, torch.float32):
         raise AssertionError("the truncation case is gated off the top-c engine")
-    before, launched = bfk.topk_bigk_exact.fallbacks, bfk.tile_topc.launches
+    before = bfk.topk_bigk_exact.fallbacks
+    launched = (bfk.tile_topc.tc_launches, bfk.tile_topc.launches)
     d, i = near.search_knn_device(q, k)
-    if bfk.tile_topc.launches != launched + 1 or bfk.topk_bigk_exact.fallbacks != before + 1:
-        raise AssertionError("the one-tile case did not trip the truncation fallback")
+    moved = (bfk.tile_topc.tc_launches - launched[0], bfk.tile_topc.launches - launched[1])
+    if moved != (1, 0) or bfk.topk_bigk_exact.fallbacks != before + 1:
+        raise AssertionError(f"the one-tile case did not trip the truncation fallback through "
+                             f"the tensor-core K4 (launches moved {moved})")
     rd, ri, s64 = exact_truth(q, x, 64 * TILE_N - 77, k + 1)
     assert_knn(d.cpu().numpy(), i.cpu().numpy(), rd, ri, s64)
     if set(i[0].tolist()) - set(range(200)):
         raise AssertionError("the truncation fallback missed planted rows")
-    print(f"# one-tile store: top-c truncation flag fired at k={k}, the fallback matches the "
-          "float64 exact top-k", flush=True)
+    print(f"# one-tile store: the tensor-core K4's truncation flag fired at k={k}, the "
+          "fallback matches the float64 exact top-k", flush=True)
 
 
 def main() -> int:

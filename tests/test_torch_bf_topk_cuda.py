@@ -12,9 +12,10 @@ Float lanes: kernel and plain version both sum in fp32, in different orders
 (the tensor-core K1's fp32 lane multiplies as a 3xTF32 split, within 2^-20
 relative of fp32 products), so distances agree within 1e-5 and ids except at
 near-ties. Integer lanes are exact on both sides: L2 and IP must be equal;
-Cosine rounds one fp32 divide and is held to 1e-6. K1 and K3 each have two
-kernels: the tensor-core one where ``config.gm_tc_ok`` admits the shape, the
-CUDA-core one elsewhere; every K1 and K3 case checks which one launched.
+Cosine rounds one fp32 divide and is held to 1e-6. K1, K3 and K4 each have
+two kernels: the tensor-core one where ``config.gm_tc_ok`` admits the shape
+(K4: and ``tile_n`` is a multiple of 128), the CUDA-core one elsewhere; every
+case checks which one launched.
 """
 
 import numpy as np
@@ -91,22 +92,34 @@ def _assert_lists(lane, metric, got, ref):
 # below and above the kernel's 128-column block.
 GM_SHAPES = [(37, 1024, 40, 128, 16, 1000), (1, 4096, 37, 1024, 256, 3001),
              (130, 2048, 64, 512, 128, 2048)]
-# Per-tile top-c (B, N, D, tile_n, c, count): a tile shorter than the kernel's
-# 128-row sub-tile, count inside a tile, count below one tile, c = tile_n.
+# Per-tile top-c on the CUDA-core K4 (B, N, D, tile_n, c, count): a tile
+# shorter than the kernel's 128-row sub-tile, odd rows (no lane's row is a
+# multiple of 16 bytes), count inside a tile, count below one tile, c =
+# tile_n.
 TOPC_SHAPES = [(37, 1024, 40, 64, 16, 1000), (1, 4096, 37, 1024, 32, 3001),
-               (130, 2048, 64, 512, 128, 300), (7, 512, 48, 128, 128, 512)]
+               (130, 2048, 63, 512, 128, 300), (7, 512, 47, 128, 128, 512)]
+# Per-tile top-c every lane's tensor-core K4 takes (B, N, D, tile_n, c,
+# count): B = 1, 7, 130, 1024; tile_n = 128, 512, 4096; c = 1, 32, 128; a
+# count inside a tile, counts that leave whole tiles empty, count = 0;
+# ranges of one tile (B = 1, 7) and of several (B = 130 over 125 live
+# tiles: 3 a range, the last 2 tiles past every range; B = 1024: 2).
+TOPC_TC_SHAPES = [(1, 8192, 768, 4096, 32, 7001), (7, 4096, 96, 512, 128, 1500),
+                  (130, 2048, 48, 128, 1, 2000), (130, 16384, 48, 128, 32, 16000),
+                  (130, 4096, 96, 512, 32, 0), (1024, 65536, 64, 4096, 32, 60000)]
 # Fused top-k (B, N, D, count, k): N off the 128-row grid, k > count, k = 128;
 # D = 37 and (in the byte lanes) 40 and 48 go to the CUDA-core K3.
 FUSED_SHAPES = [(37, 3000, 40, 2500, 100), (7, 2048, 37, 50, 64), (130, 5000, 64, 5000, 128),
                 (1, 70000, 48, 69999, 33)]
 # Fused top-k every lane's tensor-core K3 takes (B, N, D, count, k, bound):
-# B = 1, 7, 130, counts off the 128-row grid and off the ranges, m = 1, 40,
-# 100, 128, k > count, count = 0; ``bound``: the slot of the plain version's
-# list that sets the lower bound (None: no bound).
+# B = 1, 7, 130, counts off the 128-row grid and off the ranges, m = 1, 32,
+# 40, 100, 128, k > count, count = 0, K4's m = 32 on ranges of 6,912 rows
+# (one list per range, not per 4096 rows); ``bound``: the slot of the plain
+# version's list that sets the lower bound (None: no bound).
 FUSED_TC_SHAPES = [(1, 70000, 64, 69001, 128, None), (7, 3000, 96, 2900, 40, 17),
                    (130, 20000, 48, 19999, 100, None), (130, 9000, 128, 8800, 1, None),
                    (7, 40000, 64, 39999, 128, 60), (1, 5000, 768, 4999, 100, 3),
-                   (7, 2048, 64, 50, 64, None), (3, 1000, 64, 0, 10, None)]
+                   (7, 2048, 64, 50, 64, None), (3, 1000, 64, 0, 10, None),
+                   (130, 300000, 64, 299001, 32, None)]
 # Group minima every lane's tensor-core K1 takes (B, N, D, tile_n, G, count):
 # B = 1, 7, 130, counts off the grid, G below and above its 128 columns.
 GM_TC_SHAPES = [(1, 8192, 768, 4096, 256, 7001), (7, 4096, 96, 1024, 256, 3999),
@@ -140,12 +153,20 @@ def _gm_case(card, lane, metric, shape):
 def _topc_case(card, lane, metric, shape):
     B, N, D, tile_n, c, count = shape
     q, x, aux, qn, m = _case(card, lane, metric, B, N, D, seed=B + D + 1)
-    kw = dict(metric=m, tile_n=tile_n, c=c, query_norms=qn)
-    d, i = bfk.tile_topc(q, x, aux, count, **kw)
-    rd, ri = bfk.tile_topc_ref(q, x, aux, count, **kw)
+    kw = dict(metric=m, tile_n=tile_n, query_norms=qn)
+    d, i = bfk.tile_topc(q, x, aux, count, c=c, **kw)
+    # The plain version's next pair too, where the tile has one: the
+    # tensor-core fp32 lane rounds apart from the plain IEEE fp32 (3xTF32),
+    # so a tile's c-th slot may hold a near-tie's other pair.
+    cr = min(c + 1, tile_n)
+    rd, ri = bfk.tile_topc_ref(q, x, aux, count, c=cr, **kw)
     assert d.shape == i.shape == (B, N // tile_n, c) and i.dtype == torch.int32
     _assert_lists(lane, metric, (d.reshape(-1, c), i.reshape(-1, c)),
-                  (rd.reshape(-1, c), ri.reshape(-1, c)))
+                  (rd.reshape(-1, cr), ri.reshape(-1, cr)))
+
+
+def _topc_counts():
+    return bfk.tile_topc.tc_launches, bfk.tile_topc.launches
 
 
 def _fused_counts():
@@ -185,15 +206,15 @@ def _fused_case(card, lane, metric, shape):
     _assert_lists(lane, metric, got, ref)
 
 
-@pytest.mark.parametrize("kernel", ["gm", "fused", "fused_tc", "topc"])
+@pytest.mark.parametrize("kernel", ["gm", "fused", "fused_tc", "topc", "topc_tc"])
 def test_kernel_matches_plain(card, kernel):
     # (case, shapes, launch counters, the counters' expected moves)
     case, shapes, counts, expect = {
         "gm": (_gm_case, GM_SHAPES, _gm_counts, _gm_expect),
         "fused": (_fused_case, FUSED_SHAPES, _fused_counts, _fused_expect),
         "fused_tc": (_fused_case, FUSED_TC_SHAPES, _fused_counts, lambda lane, D: (1, 0)),
-        "topc": (_topc_case, TOPC_SHAPES, lambda: (bfk.tile_topc.launches,),
-                 lambda lane, D: (1,)),
+        "topc": (_topc_case, TOPC_SHAPES, _topc_counts, lambda lane, D: (0, 1)),
+        "topc_tc": (_topc_case, TOPC_TC_SHAPES, _topc_counts, lambda lane, D: (1, 0)),
     }[kernel]
     for lane in LANES:
         for metric in METRICS:
@@ -365,7 +386,7 @@ def test_index_on_card_matches_index_on_cpu(card, lane, monkeypatch):
     rng = np.random.default_rng(3)
     x, q = _rows(rng, 1500, 48, lane), _rows(rng, 9, 48, lane)
     tol = 1e-6 if lane in ("s8", "u8") else TOL
-    counts = lambda: (*_gm_counts(), *_fused_counts(), bfk.tile_topc.launches)
+    counts = lambda: (*_gm_counts(), *_fused_counts(), *_topc_counts())
     for metric in METRICS:
         params = BFParams(type=_VTYPES[lane], dim=48, metric=VecSimMetric[metric])
         gpu, cpu = BruteForceIndex(params, device=card), BruteForceIndex(params, device="cpu")
@@ -373,9 +394,10 @@ def test_index_on_card_matches_index_on_cpu(card, lane, monkeypatch):
             idx.add_vector_batch(x, range(1500))
             for lab in range(0, 1500, 7):
                 idx.delete_vector(lab)
-        # k = 10 and 64 run the tensor-core K1 and K3 (D = 48 passes their
-        # gate in every lane).
-        for k, want in ((10, (1, 0, 0, 0, 0)), (64, (0, 0, 1, 0, 0)), (200, (0, 0, 0, 0, 1))):
+        # k = 10, 64 and 200 run the tensor-core K1, K3 and K4 (D = 48 passes
+        # their gate in every lane, tile_n = 256 K4's).
+        for k, want in ((10, (1, 0, 0, 0, 0, 0)), (64, (0, 0, 1, 0, 0, 0)),
+                        (200, (0, 0, 0, 0, 1, 0))):
             before = counts()
             assert_replies_parity(gpu.topk_query_batch(q, k), cpu.topk_query_batch(q, k), tol)
             assert tuple(a - b for a, b in zip(counts(), before)) == want, (metric, k)

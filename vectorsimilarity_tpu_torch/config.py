@@ -90,12 +90,14 @@ def gm_enabled(kind: str, k: int, capacity: int, dtype) -> bool:
 
 
 def gm_tc_ok(dim: int, dtype) -> bool:
-    """Gate of the tensor-core kernels of the group-min and fused engines
-    (``csrc/bf_topk_gm_tc.cu``, ``csrc/bf_topk_fused_tc.cu``): a store type
-    with a scoring lane and a row of ``dim`` elements whose byte length is a
-    multiple of 16, the row stride a TMA load needs. The wrappers send every
-    other shape to the CUDA-core kernels (``csrc/bf_topk_gm.cu``,
-    ``csrc/bf_topk_fused.cu``) before launching."""
+    """Gate of the tensor-core kernels of the group-min, fused and big-k
+    engines (``csrc/bf_topk_gm_tc.cu``, ``csrc/bf_topk_fused_tc.cu``): a
+    store type with a scoring lane and a row of ``dim`` elements whose byte
+    length is a multiple of 16, the row stride a TMA load needs. The
+    wrappers send every other shape to the CUDA-core kernels
+    (``csrc/bf_topk_gm.cu``, ``csrc/bf_topk_fused.cu``,
+    ``csrc/bf_topk_topc.cu``) before launching; the big-k one also needs
+    tiles of a multiple of 128 rows (``topc_tc_admits``)."""
     lanes = _KERNEL_DTYPES["float"] + _KERNEL_DTYPES["int"]
     if dtype not in lanes or dim <= 0:
         return False

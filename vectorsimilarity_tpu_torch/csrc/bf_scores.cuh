@@ -43,10 +43,10 @@
 // TM x 8 tile of accumulators (BM = 16 TM; TM = 8 or 4); the tile's rows
 // (columns) are blocks of 4, 64 apart: row_of / col_of.
 //
-// Loads. A thread loads quads of 4 consecutive words of one row: 16 bytes
-// (F32, S8, U8) or 8 bytes (BF16, F16) in the vector path, which needs D and
-// the base pointers aligned to the quad (D % 4 for the float lanes, D % 16
-// for the integer lanes); element by element with a bounds test otherwise.
+// Loads. A thread loads quads of 4 consecutive words of one row, element by
+// element with a bounds test: these kernels serve the rows the tensor-core
+// kernels' TMA gate refuses (a row that is not a multiple of 16 bytes, a
+// base off 16 bytes), and K4's tiles that are not a multiple of 128 rows.
 // Rows past the valid count and depth past D read as 0, which adds nothing to
 // a dot product or to dsq. The next slice's loads are issued before the
 // current slice's products and are held in registers as loaded: BF16 and F16
@@ -145,15 +145,6 @@ __device__ __forceinline__ unsigned mad(unsigned a, unsigned b, unsigned c) {
   return __dp4a(a, b, c);
 }
 
-// Whether the vector load path may be used for this lane.
-template <class Lane>
-inline bool can_vectorize(const void* q, const void* data, int D) {
-  const int quad_elems = 4 * Lane::EPW;
-  const uintptr_t quad_bytes = quad_elems * sizeof(typename Lane::elem_t);
-  return D % quad_elems == 0 && (uintptr_t)q % quad_bytes == 0 &&
-         (uintptr_t)data % quad_bytes == 0;
-}
-
 // Local row (column) of a thread's i-th accumulator row (column).
 __device__ __forceinline__ int row_of(int t, int i) { return (i >> 2) * 64 + t * 4 + (i & 3); }
 __device__ __forceinline__ int col_of(int t, int j) { return row_of(t, j); }
@@ -162,7 +153,7 @@ __device__ __forceinline__ int col_of(int t, int j) { return row_of(t, j); }
 // rows from `row0` on into staging registers, one quad of 4 words at a time,
 // ROWS / 64 quads a thread. Rows at or past `rows_valid` and elements at or
 // past D read as 0.
-template <class Lane, bool VEC, int ROWS>
+template <class Lane, int ROWS>
 __device__ __forceinline__ void load_slice(const typename Lane::elem_t* __restrict__ src,
                                            long long row0, int rows_valid, int D, int k0,
                                            int tid,
@@ -178,26 +169,12 @@ __device__ __forceinline__ void load_slice(const typename Lane::elem_t* __restri
     const bool live = row < rows_valid;
     T* out = &r[p * Lane::SPQ];
     if constexpr (sizeof(E) == 2) {  // 4 elements packed in 2 registers
-      if constexpr (VEC) {
-        uint2 v = make_uint2(0u, 0u);
-        if (live && e0 < D) v = *reinterpret_cast<const uint2*>(at);
-        out[0] = v.x;
-        out[1] = v.y;
-      } else {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const uint32_t lo = (live && e0 + 2 * h < D) ? Lane::bits(at[2 * h]) : 0u;
-          const uint32_t hi = (live && e0 + 2 * h + 1 < D) ? Lane::bits(at[2 * h + 1]) : 0u;
-          out[h] = lo | (hi << 16);
-        }
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t lo = (live && e0 + 2 * h < D) ? Lane::bits(at[2 * h]) : 0u;
+        const uint32_t hi = (live && e0 + 2 * h + 1 < D) ? Lane::bits(at[2 * h + 1]) : 0u;
+        out[h] = lo | (hi << 16);
       }
-    } else if constexpr (VEC) {  // 16 bytes: 4 floats, or 16 bytes packed into 4 words
-      Quad<T> v = {T(0), T(0), T(0), T(0)};
-      if (live && e0 < D) v = *reinterpret_cast<const Quad<T>*>(at);
-      out[0] = v.x;
-      out[1] = v.y;
-      out[2] = v.z;
-      out[3] = v.w;
     } else {
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
@@ -243,7 +220,7 @@ __device__ __forceinline__ void store_slice(
 // L2) dsq[j] becomes the sum of squares of store row col_of(tc, j). Every
 // thread of the block must call it; it ends after the last slice's products,
 // without a barrier.
-template <class Lane, bool VEC, int TM>
+template <class Lane, int TM>
 __device__ __forceinline__ void tile_dots(const typename Lane::elem_t* __restrict__ q,
                                           const typename Lane::elem_t* __restrict__ data,
                                           long long m0, int a_rows, long long row0, int b_rows,
@@ -268,16 +245,16 @@ __device__ __forceinline__ void tile_dots(const typename Lane::elem_t* __restric
   for (int j = 0; j < 8; ++j) dsq[j] = A(0);
 
   typename Lane::stage_t ra[BM / 64 * Lane::SPQ], rb[BN / 64 * Lane::SPQ];
-  load_slice<Lane, VEC, BM>(q, m0, a_rows, D, 0, tid, ra);
-  load_slice<Lane, VEC, BN>(data, row0, b_rows, D, 0, tid, rb);
+  load_slice<Lane, BM>(q, m0, a_rows, D, 0, tid, ra);
+  load_slice<Lane, BN>(data, row0, b_rows, D, 0, tid, rb);
   for (int k0 = 0; k0 < D; k0 += KE) {
     __syncthreads();  // the previous slice's readers are done
     store_slice<Lane, BM>(As, tid, ra);
     store_slice<Lane, BN>(Bs, tid, rb);
     __syncthreads();
     if (k0 + KE < D) {  // next slice in flight during the products
-      load_slice<Lane, VEC, BM>(q, m0, a_rows, D, k0 + KE, tid, ra);
-      load_slice<Lane, VEC, BN>(data, row0, b_rows, D, k0 + KE, tid, rb);
+      load_slice<Lane, BM>(q, m0, a_rows, D, k0 + KE, tid, ra);
+      load_slice<Lane, BN>(data, row0, b_rows, D, k0 + KE, tid, rb);
     }
 #pragma unroll
     for (int kk = 0; kk < KW; ++kk) {
@@ -339,30 +316,3 @@ __device__ __forceinline__ float finish(typename Lane::acc_t ip, int metric, flo
 }
 
 }  // namespace bfs
-
-// Instantiates `CALL(Lane, VEC)` for the lane code and the pointers' alignment.
-#define BFS_DISPATCH(lane, q, data, D, CALL)                                      \
-  switch (lane) {                                                                 \
-    case bfs::LANE_F32:                                                           \
-      if (bfs::can_vectorize<bfs::LaneF32>(q, data, D)) CALL(bfs::LaneF32, true); \
-      else CALL(bfs::LaneF32, false);                                             \
-      break;                                                                      \
-    case bfs::LANE_BF16:                                                          \
-      if (bfs::can_vectorize<bfs::LaneBF16>(q, data, D)) CALL(bfs::LaneBF16, true); \
-      else CALL(bfs::LaneBF16, false);                                            \
-      break;                                                                      \
-    case bfs::LANE_F16:                                                           \
-      if (bfs::can_vectorize<bfs::LaneF16>(q, data, D)) CALL(bfs::LaneF16, true); \
-      else CALL(bfs::LaneF16, false);                                             \
-      break;                                                                      \
-    case bfs::LANE_S8:                                                            \
-      if (bfs::can_vectorize<bfs::LaneS8>(q, data, D)) CALL(bfs::LaneS8, true);   \
-      else CALL(bfs::LaneS8, false);                                              \
-      break;                                                                      \
-    case bfs::LANE_U8:                                                            \
-      if (bfs::can_vectorize<bfs::LaneU8>(q, data, D)) CALL(bfs::LaneU8, true);   \
-      else CALL(bfs::LaneU8, false);                                              \
-      break;                                                                      \
-    default:                                                                      \
-      return (int)cudaErrorInvalidValue;                                          \
-  }

@@ -90,7 +90,7 @@ __device__ __forceinline__ void warp_insert(float* ld, int* li, int m, float s, 
 // Rows >= count score +inf. With lo_d / lo_i (both or neither), a query
 // keeps only pairs lex-greater than its (lo_d, lo_i). Every thread of the
 // block must call it; `smem` is select_smem_bytes(m) of dynamic shared memory.
-template <class Lane, bool VEC>
+template <class Lane>
 __device__ __forceinline__ void range_topm(
     const typename Lane::elem_t* __restrict__ q, const typename Lane::elem_t* __restrict__ data,
     Aux aux, const float* __restrict__ lo_d, const int* __restrict__ lo_i,
@@ -123,8 +123,7 @@ __device__ __forceinline__ void range_topm(
   for (long long row0 = r_begin; row0 < r_end && row0 < count; row0 += BN) {
     const int b_rows = (int)(r_end - row0 < BN ? r_end - row0 : BN);
     A acc[SEL_TM][8], dsq[8];
-    tile_dots<Lane, VEC, SEL_TM>(q, data, m0, a_rows, row0, b_rows, D, need_dsq, As, Bs, acc,
-                                 dsq);
+    tile_dots<Lane, SEL_TM>(q, data, m0, a_rows, row0, b_rows, D, need_dsq, As, Bs, acc, dsq);
 
     // Metric epilogue, masks, score tile.
 #pragma unroll

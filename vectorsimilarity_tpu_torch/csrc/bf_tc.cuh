@@ -1,12 +1,14 @@
-// Hopper device helpers of the tensor-core kernels (the group-min kernel
-// bf_topk_gm_tc.cu, the fused top-k kernel bf_topk_fused_tc.cu): mbarriers,
-// TMA tile loads, wgmma shared-memory descriptors, and one m64n128 and one
-// m64n64 wgmma per operand type, as inline PTX for sm_90a.
+// Hopper helpers of the tensor-core kernels (the group-min kernel
+// bf_topk_gm_tc.cu, the fused top-k and per-tile top-c kernels
+// bf_topk_fused_tc.cu): mbarriers, TMA tile loads and the host side of their
+// tensor maps, wgmma shared-memory descriptors, one m64n128 and one m64n64
+// wgmma per operand type as inline PTX for sm_90a, the fp32 lane's 3xTF32
+// split, and the integer rows' sums of squares.
 //
 // Shared-memory layout the helpers assume. Every operand tile is K-major: a
-// row of the tile is 128 bytes of depth (32 fp32, 64 bf16/fp16 or 128 int8
-// elements), rows follow each other, and TMA writes the tile with the
-// 128-byte swizzle (16-byte chunk c of row r lands at chunk c ^ (r % 8)).
+// row of the tile is SLICE = 128 bytes of depth (32 fp32, 64 bf16/fp16 or
+// 128 int8 elements), rows follow each other, and TMA writes the tile with
+// the 128-byte swizzle (16-byte chunk c of row r lands at chunk c ^ (r % 8)).
 // Eight rows form one 1024-byte swizzle atom, so a tile starts on a
 // 1024-byte boundary. One wgmma consumes 32 bytes of depth (k8 tf32, k16
 // bf16/fp16, k32 int8); step s of a 128-byte slice starts 32 s bytes into
@@ -16,11 +18,14 @@
 
 #include <cuda.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 namespace bft {
+
+constexpr int SLICE = 128;  // bytes of depth per tile row, stage and TMA box
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -222,5 +227,100 @@ BFT_WGMMA_N64(wgmma_s8_n64, int, BFT_R, "wgmma.mma_async.sync.aligned.m64n64k32.
 BFT_WGMMA_N64(wgmma_u8_n64, int, BFT_R, "wgmma.mma_async.sync.aligned.m64n64k32.s32.u8.u8", "")
 
 #undef BFT_WGMMA_N64
+
+// ------------------------------------------------------- fp32 as 3xTF32
+
+// TF32 rounding of an fp32 pattern: nearest, ties away from zero (the
+// rounding of cvt.rna.tf32.f32, done with integer ops so that the low 13
+// bits come out zero whatever the tensor core does with them). Finite inputs
+// only (the stores hold no inf or NaN).
+__device__ __forceinline__ float tf32_round(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
+}
+
+// Splits U * 2 KB of a landed fp32 slice in place into hi = tf32(x), writing
+// lo = tf32(x - hi) (x - hi is exact) at the same offsets of `lo`; 128
+// threads, thread t takes float4s t + 128 u. The products then run as
+// lo_q.hi_x + hi_q.lo_x + hi_q.hi_x. Error per product: |q x - (hq hx + hq
+// lx + lq hx)| <= 3.01 * 2^-22 |q x|, so over a dot product at most 2^-20 *
+// sum_i |q_i x_i| (9.5e-7 for unit vectors) on top of the fp32
+// accumulation; subnormal inputs lose at most 2^-137 absolute each. Both sit
+// below the float lanes' 1e-5 tolerance. `split_tf32` in
+// ops/kernels/bf_topk.py is the same split in PyTorch, and
+// tests/test_torch_bf_gm_tc.py checks these bounds.
+template <int U>
+__device__ __forceinline__ void split_share(uint8_t* tile, uint8_t* lo, int t) {
+  float4* h4 = reinterpret_cast<float4*>(tile);
+  float4* l4 = reinterpret_cast<float4*>(lo);
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int i = t + 128 * u;
+    const float4 v = h4[i];
+    float4 h, l;
+    h.x = tf32_round(v.x);
+    h.y = tf32_round(v.y);
+    h.z = tf32_round(v.z);
+    h.w = tf32_round(v.w);
+    l.x = tf32_round(v.x - h.x);
+    l.y = tf32_round(v.y - h.y);
+    l.z = tf32_round(v.z - h.z);
+    l.w = tf32_round(v.w - h.w);
+    h4[i] = h;
+    l4[i] = l;
+  }
+}
+
+// ------------------------------------------------- integer L2's row norms
+
+// Sum of squares of each of the first `rows` integer rows, exact in int32
+// (the wrappers refuse D with 255^2 D >= 2^31): one warp per row, 8 rows a
+// block of 256 threads.
+template <class E>
+__global__ void row_sumsq(const E* __restrict__ x, int* __restrict__ out, int rows, int D) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const E* p = x + (long long)row * D;
+  int s = 0;
+  for (int e = lane; e < D; e += 32) s += (int)p[e] * (int)p[e];
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (lane == 0) out[row] = s;
+}
+
+// ------------------------------------------------------ TMA maps (host)
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up in the libcuda that the CUDA runtime
+// has already loaded (no link against it).
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib == nullptr ? nullptr
+                          : reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+// Map of a row-major [rows, D] matrix of `esize`-byte elements of TMA type
+// `type` in [box_rows x SLICE bytes] boxes with the 128-byte swizzle. Boxes
+// reaching past the matrix arrive zero-filled.
+inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int esize, const void* base,
+                     long long rows, int D, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)D * esize};
+  const cuuint32_t box[2] = {(cuuint32_t)(SLICE / esize), (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1u, 1u};
+  EncodeTiled enc = encoder();
+  return enc != nullptr &&
+         enc(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 }  // namespace bft

@@ -27,10 +27,9 @@
 //
 // Since the tensor-core kernel (bf_topk_fused_tc.cu) came, this one serves
 // the shapes its gate refuses: rows whose byte length is not a multiple of 16
-// (config.gm_tc_ok) or tensors whose bases are not 16-byte aligned. Those are
-// exactly the shapes bf_scores.cuh's 16-byte vector loads refuse
-// (`can_vectorize`), so only the scalar-load variant of range_topm is built;
-// it takes any shape.
+// (config.gm_tc_ok) or tensors whose bases are not 16-byte aligned. 16-byte
+// vector loads could serve none of those, so bf_scores.cuh loads element by
+// element; that takes any shape.
 
 #include "bf_select.cuh"
 
@@ -48,9 +47,9 @@ fused_topk_kernel(const typename Lane::elem_t* __restrict__ q,
   extern __shared__ __align__(16) unsigned char smem[];
   const long long r_begin = (long long)blockIdx.x * range_rows;
   const long long r_end = r_begin + range_rows < N ? r_begin + range_rows : N;
-  range_topm<Lane, false>(q, data, aux, lo_d, lo_i, part_d, part_i, B, D, r_begin, r_end,
-                          (int)blockIdx.y * SEL_BM, (int)blockIdx.x, (int)gridDim.x, m, count,
-                          metric, smem);
+  range_topm<Lane>(q, data, aux, lo_d, lo_i, part_d, part_i, B, D, r_begin, r_end,
+                   (int)blockIdx.y * SEL_BM, (int)blockIdx.x, (int)gridDim.x, m, count, metric,
+                   smem);
 }
 
 template <class Lane>

@@ -1,18 +1,25 @@
 // Fused top-k kernel of the flat index's exact k-NN for 32 < k <= 128 (and,
-// chained, any k) on Hopper's tensor cores: wgmma fed by TMA, all five
-// scoring lanes (fp32 as a 3xTF32 split, bf16, fp16, int8, uint8), L2 / IP /
-// Cosine.
+// chained, any k), and per-tile top-c kernel for 128 < k <= 2048, on
+// Hopper's tensor cores: wgmma fed by TMA, all five scoring lanes (fp32 as a
+// 3xTF32 split, bf16, fp16, int8, uint8), L2 / IP / Cosine.
 //
 // Replaces: vectorsimilarity_tpu/ops/pallas/bf_topk.py `_make_kernel` with
-// `_pop_merge` (K3), launched by `_one_pass` under `pallas_topk`, with the
-// scoring prologue `_tile_scores` (K2) in its tensor-core form. It computes
-// what bf_topk_fused.cu computes (the CUDA-core K3, which serves the shapes
-// this kernel refuses): the exact m <= 128 lex-smallest (distance, id) pairs
-// per query over the rows < count of each row range, optionally only pairs
-// lex-greater than a per-query lower bound (lo_d, lo_i), unfilled slots
-// (+inf, -1), ties by the lower id, one sorted list per query and range in
-// part_d, part_i [B, n_ranges, m]. The host part (ops/kernels/bf_topk.py
-// `fused_topk`) merges a query's lists with one exact top-m.
+// `_pop_merge` (K3), launched by `_one_pass` under `pallas_topk`, and
+// `_make_tile_topc_kernel` (K4), launched by `pallas_topk_bigk`, each with
+// the scoring prologue `_tile_scores` (K2) in its tensor-core form. One
+// kernel serves both: it writes the exact m <= 128 lex-smallest (distance,
+// id) pairs per query over the rows < count of each `list_rows` rows of its
+// row range, optionally only pairs lex-greater than a per-query lower bound
+// (lo_d, lo_i), unfilled slots (+inf, -1), ties by the lower id, one sorted
+// list per query and list in part_d, part_i [B, n_lists, m].
+//   K3 (`bf_topk_fused_tc`): list_rows = range_rows, one list per range;
+//     what bf_topk_fused.cu (the CUDA-core K3, which serves the shapes this
+//     kernel refuses) computes. The host part (ops/kernels/bf_topk.py
+//     `fused_topk`) merges a query's lists with one exact top-m.
+//   K4 (`bf_topk_topc_tc`): list_rows = tile_n, ranges of whole tiles, one
+//     list of m = c per tile: [B, n_tiles, c], what bf_topk_topc.cu (the
+//     CUDA-core K4) computes. The host part (`topk_bigk`) takes one exact
+//     top-k over a query's lists.
 //
 // What bounds it on an H100. The products, as for the tensor-core K1
 // (bf_topk_gm_tc.cu): 2 B N D = 1.6e12 operations at 1M x 768 and B = 1024,
@@ -39,19 +46,18 @@
 //
 // fp32 as 3xTF32, as in K1: each landed slice is split in shared memory,
 // hi = tf32(x) in place and lo = tf32(x - hi) into one of three rotating lo
-// buffers, and ip = lo_q.hi_x + hi_q.lo_x + hi_q.hi_x per depth step. A
-// warpgroup splits its own half of the store tile and half of the query
-// tile (which both read), then both pass a named barrier. Error per product:
-// |q x - (hq hx + hq lx + lq hx)| <= 3.01 * 2^-22 |q x|, so over a dot
-// product at most 2^-20 * sum_i |q_i x_i| (9.5e-7 for unit vectors) on top
-// of the fp32 accumulation; subnormal inputs lose at most 2^-137 absolute
-// each. The card checks hold it to 1e-5 against the plain version.
+// buffers (bf_tc.cuh's `split_share`, with the split's error bound), and ip
+// = lo_q.hi_x + hi_q.lo_x + hi_q.hi_x per depth step. A warpgroup splits its
+// own half of the store tile and half of the query tile (which both read),
+// then both pass a named barrier. The card checks hold it to 1e-5 against
+// the plain version.
 //
 // Chaining (k > 128 runs passes on (lo_d, lo_i)) needs a pair to score
 // bit-identically in every pass. A row always lands in the same column of
 // its sub-tile (ranges start on a multiple of 128 rows) and a query in the
 // same row of its block, and the sum runs over the same slices in the same
-// order; nothing of k, lo or the range split enters the arithmetic.
+// order; nothing of k, lo, the range split or list_rows enters the
+// arithmetic.
 //
 // Selection. Each consumer thread holds 2 queries x 16 columns of the
 // sub-tile's scores and, in registers, its two queries' thresholds: the
@@ -60,29 +66,36 @@
 // before anything touches shared memory. A survivor takes a slot of its
 // query's candidate buffer ([CAP] pairs) through a shared-memory atomic on
 // the query's count. After the sub-tile, one barrier of both warpgroups
-// (bar.red.or) tells whether any buffer reached CAP / 2 or overflowed; only
-// then each warp merges the non-empty buffers of its 8 queries into their
-// sorted lists ([m] pairs in shared memory) and the thresholds are
-// refreshed; survivors that found a full buffer are filtered again and
-// placed. A merge ranks each candidate and list entry by its new position
-// (the candidates lex-smaller than it, plus a binary search in the list for
-// a candidate) and writes the first m. On random data the threshold
-// settles after a few sub-tiles, almost every score fails it, and merges
-// take a few dozen rounds per range. At the range's end every buffer is
-// merged and the lists are written.
+// (bar.red.or) tells whether any buffer filled or overflowed; only then
+// each warp merges the non-empty buffers of its 8 queries into their sorted
+// lists ([m] pairs in shared memory) and the thresholds are refreshed;
+// survivors that found a full buffer are filtered again and placed. A merge
+// ranks each candidate and list entry by its new position (the candidates
+// lex-smaller than it, plus a binary search in the list for a candidate;
+// a list of m <= 32 is one slot a lane) and writes the first m. On random
+// data the threshold settles after a few sub-tiles, almost every score
+// fails it, and merges take a few dozen rounds per range. At the end of
+// each list's rows (and of the range's live rows) every buffer is merged,
+// the lists are written and reset to (+inf, -1) with both thresholds at
+// +inf; the producer and the ring do not see list boundaries, so the ring
+// stays full across them. A reset list floods the buffers: its first
+// sub-tile passes all 128 scores of a query, so K4 (a list per 4096 rows)
+// merges about c (1 + ln(tile_n / c)) candidates per query and tile,
+// several times K3's rate per row. What that costs and what bounds it:
+// tools/k4_trials.py, PERF.md.
 //
 // Budget: lists 64 m x 8 B (64 KB at m = 128), candidate buffers 64 CAP x 8
 // B, the ring of 24 KB stages (4 stages; fp32 3 and its 72 KB of lo
 // buffers): 195 KB (fp32 226 KB) at m = 128, one block per SM. The wrapper
 // cuts the store into about (SMs / query blocks) ranges of a multiple of
-// 128 rows, so that one wave of blocks fills the card.
+// 128 rows (K4: of whole tiles), so that one wave of blocks fills the card.
 //
 // Shapes. TMA needs the row stride D * esize to be a multiple of 16 bytes
-// and 16-byte aligned bases; the wrapper's gate (`fused_tc_admits`) sends
-// every other shape to bf_topk_fused.cu. Query rows past B, store rows past
-// the tensor and depth past D arrive as zeros from TMA and are masked.
-
-#include <dlfcn.h>
+// and 16-byte aligned bases, and K4 a tile_n that is a multiple of 128; the
+// wrappers' gates (`fused_tc_admits`, `topc_tc_admits`) send every other
+// shape to bf_topk_fused.cu and bf_topk_topc.cu. Query rows past B, store
+// rows past the tensor and depth past D arrive as zeros from TMA and are
+// masked.
 
 #include "bf_select.cuh"
 #include "bf_tc.cuh"
@@ -94,7 +107,6 @@ using namespace bft;
 constexpr int BM = 64;                 // queries per block: one wgmma M
 constexpr int SUB = 128;               // store rows per sub-tile
 constexpr int HALF = SUB / 2;          // sub-tile rows per consumer warpgroup: wgmma n64
-constexpr int SLICE = 128;             // bytes of depth per stage
 constexpr int Q_BYTES = BM * SLICE;    // the query tile [64 x 128 B]
 constexpr int X_BYTES = SUB * SLICE;   // the store tile [128 x 128 B]
 constexpr int STAGE_BYTES = Q_BYTES + X_BYTES;
@@ -106,6 +118,18 @@ constexpr int BAR_SPLIT = 1;                 // named barriers of the consumers
 constexpr int BAR_ROUND = 2;
 constexpr int BAR_ANY = 3;
 constexpr int BAR_RF = 4;  // + warpgroup
+
+// Trial switches, chosen at build time (nvcc -DTC_TRIAL=n) by
+// tools/k4_trials.py to measure what K4's list resets cost; 0, the default,
+// is the kernel as the package builds it. 1: merges rank every candidate
+// against all MAX_M list slots, also for lists of m <= 32; 2: a merge round
+// when a buffer is half full, not full; 3: both (the selection as K3 first
+// shipped it).
+#ifndef TC_TRIAL
+#define TC_TRIAL 0
+#endif
+constexpr bool SHORT_MERGE = TC_TRIAL != 1 && TC_TRIAL != 3;
+constexpr int ROUND_AT = TC_TRIAL >= 2 ? 2 : 1;  // a round when a buffer is CAP / ROUND_AT full
 
 // Per-lane wgmma, TMA element type, ring depth and candidate buffer length.
 template <class Lane>
@@ -181,33 +205,20 @@ size_t smem_bytes(int m) {
          BM * 4 + (size_t)BM * TC::CAP * 8 + (size_t)BM * m * 8;
 }
 
-// TF32 rounding of an fp32 pattern: nearest, ties away from zero; the low 13
-// bits come out zero (bf_topk_gm_tc.cu's `tf32_round`).
-__device__ __forceinline__ float tf32_round(float x) {
-  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
-}
-
-// Splits U * 2 KB of a landed fp32 slice in place into hi, writing lo at the
-// same offsets of `lo`; 128 threads, thread t takes float4s t + 128 u.
-template <int U>
-__device__ __forceinline__ void split_share(uint8_t* tile, uint8_t* lo, int t) {
-  float4* h4 = reinterpret_cast<float4*>(tile);
-  float4* l4 = reinterpret_cast<float4*>(lo);
+// Adds to each list entry's position (ep, the first U of EU slots a lane
+// holds) and each candidate's (xp) the candidates lex-smaller than it.
+template <int U, int EU, int CU>
+__device__ __forceinline__ void rank_candidates(const float* cd, const int* ci, int n,
+                                                const float (&ed)[EU], const int (&ei)[EU],
+                                                int (&ep)[EU], const float (&xd)[CU],
+                                                const int (&xi)[CU], int (&xp)[CU]) {
+  for (int j = 0; j < n; ++j) {
+    const float d = cd[j];
+    const int id = ci[j];
 #pragma unroll
-  for (int u = 0; u < U; ++u) {
-    const int i = t + 128 * u;
-    const float4 v = h4[i];
-    float4 h, l;
-    h.x = tf32_round(v.x);
-    h.y = tf32_round(v.y);
-    h.z = tf32_round(v.z);
-    h.w = tf32_round(v.w);
-    l.x = tf32_round(v.x - h.x);
-    l.y = tf32_round(v.y - h.y);
-    l.z = tf32_round(v.z - h.z);
-    l.w = tf32_round(v.w - h.w);
-    h4[i] = h;
-    l4[i] = l;
+    for (int u = 0; u < U; ++u) ep[u] += bfs::lex_less(d, id, ed[u], ei[u]) ? 1 : 0;
+#pragma unroll
+    for (int u = 0; u < CU; ++u) xp[u] += bfs::lex_less(d, id, xd[u], xi[u]) ? 1 : 0;
   }
 }
 
@@ -240,14 +251,9 @@ __device__ __forceinline__ void merge_list(float* ld, int* li, const float* cd, 
     xi[u] = j < n ? ci[j] : -1;
     xp[u] = 0;
   }
-  for (int j = 0; j < n; ++j) {
-    const float d = cd[j];
-    const int id = ci[j];
-#pragma unroll
-    for (int u = 0; u < EU; ++u) ep[u] += bfs::lex_less(d, id, ed[u], ei[u]) ? 1 : 0;
-#pragma unroll
-    for (int u = 0; u < CU; ++u) xp[u] += bfs::lex_less(d, id, xd[u], xi[u]) ? 1 : 0;
-  }
+  // A list of m <= 32 (K4's) has its entries in each lane's first slot.
+  if (SHORT_MERGE && m <= 32) rank_candidates<1>(cd, ci, n, ed, ei, ep, xd, xi, xp);
+  else rank_candidates<EU>(cd, ci, n, ed, ei, ep, xd, xi, xp);
 #pragma unroll
   for (int u = 0; u < CU; ++u) {
     int lo = 0, hi = m;  // first entry not lex-smaller than the candidate
@@ -294,13 +300,32 @@ __device__ __forceinline__ void merge_round(float* list_d, int* list_i, const fl
   bar_sync(BAR_ROUND, CONSUMERS);
 }
 
+// Writes the block's lists (queries below B) to list `at_list` of part_d,
+// part_i [B, n_lists, m] (nothing when at_list >= n_lists) and resets them
+// to (+inf, -1). A thread resets the entries it wrote, so a call needs no
+// barrier against the one before; the list merges after it need one.
+__device__ __forceinline__ void flush_lists(float* list_d, int* list_i, float* part_d,
+                                            int* part_i, int m, int live_q, int m0, int n_lists,
+                                            int at_list) {
+  for (int e = threadIdx.x; e < BM * m; e += CONSUMERS) {
+    const int q = e / m;
+    if (q < live_q && at_list < n_lists) {
+      const long long at = ((long long)(m0 + q) * n_lists + at_list) * m + (e - q * m);
+      part_d[at] = list_d[e];
+      part_i[at] = list_i[e];
+    }
+    list_d[e] = __int_as_float(0x7f800000);
+    list_i[e] = -1;
+  }
+}
+
 template <class Lane, int METRIC>
 __global__ void __launch_bounds__(THREADS_TC, 1)
 fused_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap xmap,
                 bfs::Aux aux, const int* __restrict__ dsq, const float* __restrict__ lo_d,
                 const int* __restrict__ lo_i, float* __restrict__ part_d,
-                int* __restrict__ part_i, int B, int range_rows, int n_ranges, int m, int count,
-                int n_slices, int qblocks) {
+                int* __restrict__ part_i, int B, int range_rows, int list_rows, int n_lists,
+                int m, int count, int n_slices, int qblocks) {
   using TC = Tc<Lane>;
   using A = typename TC::acc_t;
   constexpr int S = TC::STAGES;
@@ -328,6 +353,8 @@ fused_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
   const long long r_end = r_begin + range_rows;
   const long long r_lim = r_end < count ? r_end : count;  // rows past it are masked
   const int L = r_lim > r_begin ? (int)((r_lim - r_begin + SUB - 1) / SUB) : 0;
+  const int per_range = range_rows / list_rows;  // lists of a range
+  const int list_subs = list_rows / SUB;         // sub-tiles of a list
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
@@ -455,8 +482,8 @@ fused_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
       bar_sync(BAR_RF + wg, 128);
     }
 
-    // Epilogue: score, filter, place the survivors; merge when a buffer
-    // reached CAP / 2 or overflowed, then place what did not fit.
+    // Epilogue: score, filter, place the survivors; merge when a buffer is
+    // full or overflowed, then place what did not fit.
     uint32_t todo = 0xffffffffu;  // accumulators still to look at
     bool round;
     do {
@@ -483,7 +510,7 @@ fused_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
         } else {
           left |= 1u << i;
         }
-        want |= slot >= CAP / 2 - 1;
+        want |= slot >= CAP / ROUND_AT - 1;
       }
       todo = left;
       round = bar_any(BAR_ANY, CONSUMERS, want || left != 0u);
@@ -496,75 +523,42 @@ fused_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
         }
       }
     } while (round);
-  }
 
-  // Every buffer into its list, then the lists out.
-  merge_round<CAP>(list_d, list_i, cand_d, cand_i, cnt, m, B - m0);
-  for (int e = threadIdx.x; e < BM * m; e += CONSUMERS) {
-    const int q = e / m;
-    if (m0 + q < B) {
-      const long long at = ((long long)(m0 + q) * n_ranges + range) * m + (e - q * m);
-      part_d[at] = list_d[e];
-      part_i[at] = list_i[e];
+    // The list's (or the range's live rows') last sub-tile: every buffer
+    // into its list, the lists out, empty lists and thresholds for the next.
+    if (l + 1 == L || (l + 1) % list_subs == 0) {
+      merge_round<CAP>(list_d, list_i, cand_d, cand_i, cnt, m, B - m0);
+      flush_lists(list_d, list_i, part_d, part_i, m, B - m0, m0, n_lists,
+                  range * per_range + l / list_subs);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        thr_d[h] = inf;
+        thr_i[h] = -1;
+      }
+      bar_sync(BAR_ROUND, CONSUMERS);
     }
   }
+
+  // The range's lists with no live row: (+inf, -1) throughout.
+  for (int j = L > 0 ? (L - 1) / list_subs + 1 : 0; j < per_range; ++j)
+    flush_lists(list_d, list_i, part_d, part_i, m, B - m0, m0, n_lists, range * per_range + j);
 }
 
-// Sum of squares of each of the first `rows` integer rows, exact in int32
-// (the wrapper refuses D with 255^2 D >= 2^31): one warp per row
-// (bf_topk_gm_tc.cu's `row_sumsq`).
-template <class E>
-__global__ void row_sumsq(const E* __restrict__ x, int* __restrict__ out, int rows, int D) {
-  const int row = blockIdx.x * 8 + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const E* p = x + (long long)row * D;
-  int s = 0;
-  for (int e = lane; e < D; e += 32) s += (int)p[e] * (int)p[e];
-#pragma unroll
-  for (int o = 16; o > 0; o /= 2) s += __shfl_xor_sync(0xffffffffu, s, o);
-  if (lane == 0) out[row] = s;
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up in the libcuda that the CUDA runtime
-// has already loaded (no link against it).
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib == nullptr ? nullptr
-                          : reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
-}
-
-// Map of a row-major [rows, D] matrix in [box_rows x 128 B] boxes.
-template <class Lane>
-bool make_map(CUtensorMap* map, const void* base, long long rows, int D, int box_rows) {
-  const int esize = sizeof(typename Lane::elem_t);
-  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)D * esize};
-  const cuuint32_t box[2] = {(cuuint32_t)(SLICE / esize), (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1u, 1u};
-  EncodeTiled enc = encoder();
-  return enc != nullptr &&
-         enc(map, Tc<Lane>::TYPE, 2, const_cast<void*>(base), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
+// A launch's row split: ranges of range_rows rows (a multiple of 128), one
+// block per range and query block, each writing a list per list_rows rows
+// of its range (list_rows a multiple of 128 that divides range_rows) to list
+// index range * (range_rows / list_rows) + j of n_lists.
+struct Split {
+  int range_rows, n_ranges, list_rows, n_lists;
+};
 
 template <class Lane, int METRIC>
 int launch_metric(const CUtensorMap& qmap, const CUtensorMap& xmap, bfs::Aux aux, const int* dsq,
                   const float* lo_d, const int* lo_i, float* part_d, int* part_i, int B, int D,
-                  int range_rows, int n_ranges, int m, int count, cudaStream_t stream) {
+                  Split sp, int m, int count, cudaStream_t stream) {
   using E = typename Lane::elem_t;
   const int qblocks = (B + BM - 1) / BM;
-  const long long blocks = (long long)n_ranges * qblocks;
+  const long long blocks = (long long)sp.n_ranges * qblocks;
   if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   const int n_slices = (D * (int)sizeof(E) + SLICE - 1) / SLICE;
   const size_t bytes = smem_bytes<Lane>(m);
@@ -572,21 +566,23 @@ int launch_metric(const CUtensorMap& qmap, const CUtensorMap& xmap, bfs::Aux aux
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)blocks, THREADS_TC, bytes, stream>>>(qmap, xmap, aux, dsq, lo_d, lo_i, part_d,
-                                                          part_i, B, range_rows, n_ranges, m,
-                                                          count, n_slices, qblocks);
+  kernel<<<(unsigned)blocks, THREADS_TC, bytes, stream>>>(
+      qmap, xmap, aux, dsq, lo_d, lo_i, part_d, part_i, B, sp.range_rows, sp.list_rows,
+      sp.n_lists, m, count, n_slices, qblocks);
   return (int)cudaGetLastError();
 }
 
 template <class Lane>
 int launch(const void* q, const void* data, bfs::Aux aux, int* dsq, const float* lo_d,
-           const int* lo_i, float* part_d, int* part_i, int B, int D, int N, int range_rows,
-           int n_ranges, int m, int count, int metric, cudaStream_t stream) {
+           const int* lo_i, float* part_d, int* part_i, int B, int D, int N, Split sp, int m,
+           int count, int metric, cudaStream_t stream) {
   using E = typename Lane::elem_t;
   if ((D * (int)sizeof(E)) % 16 != 0 || (uintptr_t)q % 16 != 0 || (uintptr_t)data % 16 != 0)
     return (int)cudaErrorInvalidValue;
   CUtensorMap qmap, xmap;
-  if (!make_map<Lane>(&qmap, q, B, D, BM) || !make_map<Lane>(&xmap, data, N, D, SUB))
+  constexpr CUtensorMapDataType type = Tc<Lane>::TYPE;
+  if (!make_map(&qmap, type, sizeof(E), q, B, D, BM) ||
+      !make_map(&xmap, type, sizeof(E), data, N, D, SUB))
     return (int)cudaErrorInvalidValue;
   if (!Lane::INT || metric != bfs::METRIC_L2) {
     dsq = nullptr;
@@ -598,8 +594,7 @@ int launch(const void* q, const void* data, bfs::Aux aux, int* dsq, const float*
       if (err != 0) return err;
     }
   }
-#define FUSED_TC_ARGS \
-  qmap, xmap, aux, dsq, lo_d, lo_i, part_d, part_i, B, D, range_rows, n_ranges, m, count, stream
+#define FUSED_TC_ARGS qmap, xmap, aux, dsq, lo_d, lo_i, part_d, part_i, B, D, sp, m, count, stream
   switch (metric) {
     case bfs::METRIC_L2:
       return launch_metric<Lane, bfs::METRIC_L2>(FUSED_TC_ARGS);
@@ -611,30 +606,20 @@ int launch(const void* q, const void* data, bfs::Aux aux, int* dsq, const float*
 #undef FUSED_TC_ARGS
 }
 
-}  // namespace
-
-// Launches the kernel on `stream` and returns a cudaError_t (0 on success).
-// Arguments as bf_topk_fused.cu's entry point, plus `dsq`: int32 scratch of
-// at least `count` entries for integer L2 (the rows' sums of squares), else
-// null. range_rows is a multiple of 128 and n_ranges * range_rows covers
-// the rows < min(count, N). Refuses (cudaErrorInvalidValue) a row stride D *
-// esize that is not a multiple of 16 bytes or a base that is not 16-byte
-// aligned.
-extern "C" int bf_topk_fused_tc(const void* q, const void* data, const float* qaux_f,
-                                const int* qaux_i, const float* raux, int* dsq,
-                                const float* lo_d, const int* lo_i, float* part_d, int* part_i,
-                                int lane, int B, int D, int N, int range_rows, int n_ranges,
-                                int m, int count, int metric, void* stream) {
+// Checks the split and runs the lane's launch; count is clamped to [0, N].
+int launch_lane(int lane, const void* q, const void* data, bfs::Aux aux, int* dsq,
+                const float* lo_d, const int* lo_i, float* part_d, int* part_i, int B, int D,
+                int N, Split sp, int m, int count, int metric, void* stream) {
   count = count < 0 ? 0 : count < N ? count : N;
-  if (B <= 0 || D <= 0 || N <= 0 || range_rows <= 0 || range_rows % SUB != 0 || n_ranges <= 0 ||
-      m <= 0 || m > MAX_M || metric < 0 || metric > 2 || (lo_d == nullptr) != (lo_i == nullptr) ||
-      (long long)n_ranges * range_rows < count)
+  if (B <= 0 || D <= 0 || N <= 0 || sp.range_rows <= 0 || sp.list_rows <= 0 ||
+      sp.list_rows % SUB != 0 || sp.range_rows % sp.list_rows != 0 || sp.n_ranges <= 0 ||
+      sp.n_lists <= 0 || m <= 0 || m > MAX_M || metric < 0 || metric > 2 ||
+      (lo_d == nullptr) != (lo_i == nullptr) || (long long)sp.n_ranges * sp.range_rows < count)
     return (int)cudaErrorInvalidValue;
-  const bfs::Aux aux = {qaux_f, qaux_i, raux};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FUSED_TC_CALL(Lane)                                                                    \
-  return launch<Lane>(q, data, aux, dsq, lo_d, lo_i, part_d, part_i, B, D, N, range_rows,      \
-                      n_ranges, m, count, metric, s)
+#define FUSED_TC_CALL(Lane)                                                                  \
+  return launch<Lane>(q, data, aux, dsq, lo_d, lo_i, part_d, part_i, B, D, N, sp, m, count, \
+                      metric, s)
   switch (lane) {
     case bfs::LANE_F32:
       FUSED_TC_CALL(bfs::LaneF32);
@@ -650,4 +635,43 @@ extern "C" int bf_topk_fused_tc(const void* q, const void* data, const float* qa
       return (int)cudaErrorInvalidValue;
   }
 #undef FUSED_TC_CALL
+}
+
+}  // namespace
+
+// The entry points launch on `stream` and return a cudaError_t (0 on
+// success). `dsq`: int32 scratch of at least `count` entries for integer L2
+// (the rows' sums of squares), else null. Both refuse
+// (cudaErrorInvalidValue) a row stride D * esize that is not a multiple of
+// 16 bytes or a base that is not 16-byte aligned.
+
+// K3. Arguments as bf_topk_fused.cu's entry point, plus `dsq`. range_rows
+// is a multiple of 128 and n_ranges * range_rows covers the rows < min(count,
+// N); one list per range: part_d, part_i [B, n_ranges, m].
+extern "C" int bf_topk_fused_tc(const void* q, const void* data, const float* qaux_f,
+                                const int* qaux_i, const float* raux, int* dsq,
+                                const float* lo_d, const int* lo_i, float* part_d, int* part_i,
+                                int lane, int B, int D, int N, int range_rows, int n_ranges,
+                                int m, int count, int metric, void* stream) {
+  return launch_lane(lane, q, data, {qaux_f, qaux_i, raux}, dsq, lo_d, lo_i, part_d, part_i, B,
+                     D, N, {range_rows, n_ranges, range_rows, n_ranges}, m, count, metric, stream);
+}
+
+// K4. Arguments as bf_topk_topc.cu's entry point, plus `dsq` and the split:
+// n_ranges ranges of range_tiles whole tiles (tile_n a multiple of 128), one
+// list of c per tile: out_d, out_i [B, n_tiles, c]. The ranges must cover
+// the rows < min(count, n_tiles * tile_n); the kernel writes every list of
+// index < min(n_ranges * range_tiles, n_tiles), (+inf, -1) where a tile has
+// no live row, and leaves the rest to the caller.
+extern "C" int bf_topk_topc_tc(const void* q, const void* data, const float* qaux_f,
+                               const int* qaux_i, const float* raux, int* dsq, float* out_d,
+                               int* out_i, int lane, int B, int D, int n_tiles, int tile_n, int c,
+                               int count, int range_tiles, int n_ranges, int metric,
+                               void* stream) {
+  if (n_tiles <= 0 || tile_n <= 0 || range_tiles <= 0 ||
+      (long long)n_tiles * tile_n >= (1LL << 31) || (long long)range_tiles * tile_n >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  return launch_lane(lane, q, data, {qaux_f, qaux_i, raux}, dsq, nullptr, nullptr, out_d, out_i,
+                     B, D, n_tiles * tile_n, {range_tiles * tile_n, n_ranges, tile_n, n_tiles}, c,
+                     count, metric, stream);
 }

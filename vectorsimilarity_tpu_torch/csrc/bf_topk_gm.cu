@@ -50,9 +50,9 @@
 //
 // Since the tensor-core kernel came, this one serves the shapes it refuses:
 // rows whose byte length is not a multiple of 16 (config.gm_tc_ok) or
-// tensors whose bases are not 16-byte aligned. Those are exactly the shapes
-// bf_scores.cuh's 16-byte vector loads refuse (`can_vectorize`), so only the
-// scalar-load variant (VEC = false) is built; it takes any shape.
+// tensors whose bases are not 16-byte aligned. 16-byte vector loads could
+// serve none of those, so bf_scores.cuh loads element by element; that takes
+// any shape.
 
 #include "bf_scores.cuh"
 
@@ -63,7 +63,7 @@ using namespace bfs;
 constexpr int TM = 8;        // accumulator rows per thread
 constexpr int BM = 16 * TM;  // queries per block
 
-template <class Lane, bool VEC>
+template <class Lane>
 __global__ void __launch_bounds__(THREADS)
 gm_kernel(const typename Lane::elem_t* __restrict__ q,
           const typename Lane::elem_t* __restrict__ data, Aux aux, float* __restrict__ gm, int B,
@@ -96,7 +96,7 @@ gm_kernel(const typename Lane::elem_t* __restrict__ q,
     // Store row of group column g0 + n in sub-tile l is row0 + n.
     const long long row0 = (long long)tile * tile_n + (long long)l * G + g0;
     A acc[TM][8], dsq[8];
-    tile_dots<Lane, VEC, TM>(q, data, m0, a_rows, row0, b_rows, D, need_dsq, As, Bs, acc, dsq);
+    tile_dots<Lane, TM>(q, data, m0, a_rows, row0, b_rows, D, need_dsq, As, Bs, acc, dsq);
 
     // Metric epilogue, count mask, running group minimum.
 #pragma unroll
@@ -130,13 +130,13 @@ gm_kernel(const typename Lane::elem_t* __restrict__ q,
   }
 }
 
-template <class Lane, bool VEC>
+template <class Lane>
 int launch(const void* q, const void* data, Aux aux, float* gm, int B, int D, int n_tiles,
            int tile_n, int G, int count, int metric, cudaStream_t stream) {
   using E = typename Lane::elem_t;
   const int gblocks = (G + BN - 1) / BN;
   const dim3 grid((unsigned)(n_tiles * gblocks), (unsigned)((B + BM - 1) / BM));
-  gm_kernel<Lane, VEC><<<grid, THREADS, 0, stream>>>(
+  gm_kernel<Lane><<<grid, THREADS, 0, stream>>>(
       static_cast<const E*>(q), static_cast<const E*>(data), aux, gm, B, D, tile_n, G, count,
       metric, (long long)n_tiles * G);
   return (int)cudaGetLastError();
@@ -158,7 +158,7 @@ extern "C" int bf_topk_gm(const void* q, const void* data, const float* qaux_f,
   const Aux aux = {qaux_f, qaux_i, raux};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define GM_CALL(Lane) \
-  return launch<Lane, false>(q, data, aux, gm, B, D, n_tiles, tile_n, G, count, metric, s)
+  return launch<Lane>(q, data, aux, gm, B, D, n_tiles, tile_n, G, count, metric, s)
   switch (lane) {
     case LANE_F32:
       GM_CALL(LaneF32);

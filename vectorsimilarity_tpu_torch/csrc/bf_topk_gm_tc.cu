@@ -34,37 +34,26 @@
 // group in flight while the next slice is waited for, and after the
 // sub-tile's last slice apply `finish` (the metric a template argument),
 // the count mask and the minimum. Columns past G (G < 128) are computed
-// and not written. Integer L2 needs each row's sum of squares: a pass of its own
-// (`row_sumsq`, one warp per row) writes them to a scratch [count] int32
-// buffer before the main kernel, inside the same call.
+// and not written. Integer L2 needs each row's sum of squares: a pass of
+// its own (bf_tc.cuh's `row_sumsq`, one warp per row) writes them to a
+// scratch [count] int32 buffer before the main kernel, inside the same call.
 //
 // fp32 as 3xTF32. A TF32 operand keeps 11 significant bits. Each landed
-// fp32 slice is split in shared memory by the consumer warps, in place:
-// hi = tf32(x) (round to nearest, ties away, on the bit pattern: the
-// cvt.rna.tf32.f32 rounding, done with integer ops so that hi's low 13
-// bits are zero whatever the tensor core does with them) and lo = tf32(x -
-// hi) (x - hi is exact) into a separate buffer with the same layout, and
-// ip = lo_q.hi_x + hi_q.lo_x + hi_q.hi_x per depth step, all operands
-// from shared memory (a trial with the query fragments split in registers
-// and fed to wgmma from there was no faster: PERF.md). Error of the split,
-// per product: |q x - (hq hx + hq lx + lq hx)| <= 3.01 * 2^-22 |q x|,
-// so over a dot product at most 2^-20 * sum_i |q_i x_i| (9.5e-7 for unit
-// vectors) on top of the fp32 accumulation (the CUDA-core kernel's own
-// rounding, ~sqrt(D) * 2^-24 in practice). Subnormal inputs lose at most
-// 2^-137 absolute each. Both sit below the host's coverage eps, 1e-5
-// relative (ops/kernels/bf_topk.py `topk_gm`), which stays as it is.
-// `split_tf32` in ops/kernels/bf_topk.py is the same split in PyTorch, and
-// tests/test_torch_bf_gm_tc.py checks these bounds. The split needs its lo
-// tiles in three rotating buffers: a warpgroup writes buffer (i mod 3) for
-// slice i only after both warpgroups passed the barrier of slice i - 1,
-// when neither can still be reading slice i - 3's.
+// fp32 slice is split in shared memory by the consumer warps, in place, into
+// hi and a separate lo buffer with the same layout (bf_tc.cuh's
+// `split_share`, which states the split's error bound), and ip = lo_q.hi_x +
+// hi_q.lo_x + hi_q.hi_x per depth step, all operands from shared memory (a
+// trial with the query fragments split in registers and fed to wgmma from
+// there was no faster: PERF.md). The bound sits below the host's coverage
+// eps, 1e-5 relative (ops/kernels/bf_topk.py `topk_gm`), which stays as it
+// is. The split needs its lo tiles in three rotating buffers: a warpgroup
+// writes buffer (i mod 3) for slice i only after both warpgroups passed the
+// barrier of slice i - 1, when neither can still be reading slice i - 3's.
 //
 // Shapes. TMA needs the row stride D * esize to be a multiple of 16 bytes
 // and 16-byte aligned bases; `config.gm_tc_ok` is that gate and the wrapper
 // sends every other shape to bf_topk_gm.cu. Rows past B or past the store
 // and depth past D arrive as zeros from TMA.
-
-#include <dlfcn.h>
 
 #include "bf_scores.cuh"
 #include "bf_tc.cuh"
@@ -75,7 +64,6 @@ using namespace bft;
 
 constexpr int BM = 128;             // queries per block: two warpgroups of 64
 constexpr int BNC = 128;            // group columns per block: wgmma n128
-constexpr int SLICE = 128;          // bytes of depth per stage
 constexpr int TILE_BYTES = 128 * SLICE;  // one [128 x 128 B] operand tile
 constexpr int STAGE_BYTES = 2 * TILE_BYTES;
 constexpr int CONSUMERS = 256;
@@ -157,35 +145,6 @@ constexpr int smem_bytes() {
   return 1024 /* alignment slack */ + Tc<Lane>::STAGES * STAGE_BYTES +
          (Tc<Lane>::SPLIT ? LO_BUFS * STAGE_BYTES : 0) + 2 * Tc<Lane>::STAGES * 8 +
          2 * 2 * BNC * 4;
-}
-
-// TF32 rounding of an fp32 pattern: nearest, ties away from zero; the low 13
-// bits come out zero. Finite inputs only (the stores hold no inf or NaN).
-__device__ __forceinline__ float tf32_round(float x) {
-  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
-}
-
-// Splits 8 KB of a landed fp32 slice (this warpgroup's share of one operand
-// tile) in place into hi, writing lo at the same offsets of `lo`.
-__device__ __forceinline__ void split_share(uint8_t* tile, uint8_t* lo, int t) {
-  float4* h4 = reinterpret_cast<float4*>(tile);
-  float4* l4 = reinterpret_cast<float4*>(lo);
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int i = t + 128 * u;
-    const float4 v = h4[i];
-    float4 h, l;
-    h.x = tf32_round(v.x);
-    h.y = tf32_round(v.y);
-    h.z = tf32_round(v.z);
-    h.w = tf32_round(v.w);
-    l.x = tf32_round(v.x - h.x);
-    l.y = tf32_round(v.y - h.y);
-    l.z = tf32_round(v.z - h.z);
-    l.w = tf32_round(v.w - h.w);
-    h4[i] = h;
-    l4[i] = l;
-  }
 }
 
 // METRIC is a template argument so that `finish` compiles to its one branch:
@@ -300,8 +259,8 @@ gm_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
       uint8_t* xt = smem + s * STAGE_BYTES + TILE_BYTES;
       uint8_t* lo = lo_base + (it % LO_BUFS) * STAGE_BYTES;
       if constexpr (TC::SPLIT) {
-        split_share(qt, lo + wg * (TILE_BYTES / 2), t);
-        split_share(xt + wg * (TILE_BYTES / 2), lo + TILE_BYTES + wg * (TILE_BYTES / 2), t);
+        split_share<4>(qt, lo + wg * (TILE_BYTES / 2), t);
+        split_share<4>(xt + wg * (TILE_BYTES / 2), lo + TILE_BYTES + wg * (TILE_BYTES / 2), t);
         fence_proxy_async();
         bar_sync(1, CONSUMERS);
       }
@@ -374,53 +333,6 @@ gm_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
   }
 }
 
-// Sum of squares of each of the first `rows` integer rows, exact in int32
-// (the wrapper refuses D with 255^2 D >= 2^31): one warp per row.
-template <class E>
-__global__ void row_sumsq(const E* __restrict__ x, int* __restrict__ out, int rows, int D) {
-  const int row = blockIdx.x * 8 + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const E* p = x + (long long)row * D;
-  int s = 0;
-  for (int e = lane; e < D; e += 32) s += (int)p[e] * (int)p[e];
-#pragma unroll
-  for (int o = 16; o > 0; o /= 2) s += __shfl_xor_sync(0xffffffffu, s, o);
-  if (lane == 0) out[row] = s;
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up in the libcuda that the CUDA runtime
-// has already loaded (no link against it).
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib == nullptr ? nullptr
-                          : reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
-}
-
-// Map of a row-major [rows, D] matrix in [128 rows x 128 B] boxes.
-template <class Lane>
-bool make_map(CUtensorMap* map, const void* base, long long rows, int D) {
-  const int esize = sizeof(typename Lane::elem_t);
-  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)D * esize};
-  const cuuint32_t box[2] = {(cuuint32_t)(SLICE / esize), 128u};
-  const cuuint32_t unit[2] = {1u, 1u};
-  EncodeTiled enc = encoder();
-  return enc != nullptr &&
-         enc(map, Tc<Lane>::TYPE, 2, const_cast<void*>(base), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <class Lane, int METRIC>
 int launch_metric(const CUtensorMap& qmap, const CUtensorMap& xmap, bfs::Aux aux, int* dsq,
                   float* gm, int B, int D, int n_tiles, int tile_n, int G, int count,
@@ -448,8 +360,9 @@ int launch(const void* q, const void* data, bfs::Aux aux, int* dsq, float* gm, i
   if ((D * (int)sizeof(E)) % 16 != 0 || (uintptr_t)q % 16 != 0 || (uintptr_t)data % 16 != 0)
     return (int)cudaErrorInvalidValue;
   CUtensorMap qmap, xmap;
-  if (!make_map<Lane>(&qmap, q, B, D) ||
-      !make_map<Lane>(&xmap, data, (long long)n_tiles * tile_n, D))
+  constexpr CUtensorMapDataType type = Tc<Lane>::TYPE;
+  if (!make_map(&qmap, type, sizeof(E), q, B, D, BM) ||
+      !make_map(&xmap, type, sizeof(E), data, (long long)n_tiles * tile_n, D, BNC))
     return (int)cudaErrorInvalidValue;
   if (!Lane::INT || metric != bfs::METRIC_L2) {
     dsq = nullptr;

@@ -23,6 +23,12 @@
 // tile. The design is bf_select.cuh's: grid (n_tiles, B / 64), a block walks
 // its tile in 128-row sub-tiles and keeps 64 sorted lists of c in shared
 // memory.
+//
+// Since the tensor-core K4 (`bf_topk_topc_tc` in bf_topk_fused_tc.cu) came,
+// this one serves the shapes its gate refuses: rows whose byte length is not
+// a multiple of 16 (config.gm_tc_ok), tensors whose bases are not 16-byte
+// aligned, and tiles that are not a multiple of 128 rows (stores whose
+// capacity is below 4096). It loads element by element and takes any shape.
 
 #include "bf_select.cuh"
 
@@ -30,7 +36,7 @@ namespace {
 
 using namespace bfs;
 
-template <class Lane, bool VEC>
+template <class Lane>
 __global__ void __launch_bounds__(THREADS)
 tile_topc_kernel(const typename Lane::elem_t* __restrict__ q,
                  const typename Lane::elem_t* __restrict__ data, Aux aux,
@@ -38,16 +44,16 @@ tile_topc_kernel(const typename Lane::elem_t* __restrict__ q,
                  int c, int count, int metric) {
   extern __shared__ __align__(16) unsigned char smem[];
   const long long r_begin = (long long)blockIdx.x * tile_n;
-  range_topm<Lane, VEC>(q, data, aux, nullptr, nullptr, out_d, out_i, B, D, r_begin,
-                        r_begin + tile_n, (int)blockIdx.y * SEL_BM, (int)blockIdx.x,
-                        (int)gridDim.x, c, count, metric, smem);
+  range_topm<Lane>(q, data, aux, nullptr, nullptr, out_d, out_i, B, D, r_begin, r_begin + tile_n,
+                   (int)blockIdx.y * SEL_BM, (int)blockIdx.x, (int)gridDim.x, c, count, metric,
+                   smem);
 }
 
-template <class Lane, bool VEC>
+template <class Lane>
 int launch(const void* q, const void* data, Aux aux, float* out_d, int* out_i, int B, int D,
            int n_tiles, int tile_n, int c, int count, int metric, cudaStream_t stream) {
   using E = typename Lane::elem_t;
-  auto kernel = tile_topc_kernel<Lane, VEC>;
+  auto kernel = tile_topc_kernel<Lane>;
   const size_t bytes = select_smem_bytes(c);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -73,9 +79,21 @@ extern "C" int bf_topk_topc(const void* q, const void* data, const float* qaux_f
     return (int)cudaErrorInvalidValue;
   const Aux aux = {qaux_f, qaux_i, raux};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TOPC_CALL(Lane, VEC) \
-  return launch<Lane, VEC>(q, data, aux, out_d, out_i, B, D, n_tiles, tile_n, c, count, metric, s)
-  BFS_DISPATCH(lane, q, data, D, TOPC_CALL)
+#define TOPC_CALL(Lane) \
+  return launch<Lane>(q, data, aux, out_d, out_i, B, D, n_tiles, tile_n, c, count, metric, s)
+  switch (lane) {
+    case LANE_F32:
+      TOPC_CALL(LaneF32);
+    case LANE_BF16:
+      TOPC_CALL(LaneBF16);
+    case LANE_F16:
+      TOPC_CALL(LaneF16);
+    case LANE_S8:
+      TOPC_CALL(LaneS8);
+    case LANE_U8:
+      TOPC_CALL(LaneU8);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 #undef TOPC_CALL
-  return (int)cudaErrorInvalidValue;
 }

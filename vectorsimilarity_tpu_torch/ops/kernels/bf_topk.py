@@ -37,10 +37,13 @@ threshold filter in registers and a merge of candidate buffers into sorted
 lists) where ``fused_tc_admits``, and the CUDA-core one
 (``csrc/bf_topk_fused.cu``) for the rest.
 
-K4 (``csrc/bf_topk_topc.cu``) returns each tile's c smallest pairs; the host
-part takes one exact top-k over the survivors and flags a query as truncated
-when a tile's c-th best lies inside its global top-k (that tile may hide
-more).
+K4 returns each tile's c smallest pairs; the host part takes one exact top-k
+over the survivors and flags a query as truncated when a tile's c-th best
+lies inside its global top-k (that tile may hide more). Its tensor-core
+kernel is the tensor-core K3's, writing one list per tile instead of one per
+row range (``bf_topk_topc_tc`` in ``csrc/bf_topk_fused_tc.cu``), where
+``topc_tc_admits``; the CUDA-core one (``csrc/bf_topk_topc.cu``) takes the
+rest.
 
 ``topk_gm_exact`` and ``topk_bigk_exact`` answer a batch with any flagged
 query from the exact ``streaming_topk`` instead.
@@ -81,12 +84,12 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 PASS_K = 128  # longest list of the fused kernel; larger k chains passes
 MAX_C = 128  # longest per-tile list of the top-c kernel
-# Queries per block of both fused kernels (csrc/bf_select.cuh SEL_BM,
-# csrc/bf_topk_fused_tc.cu BM).
+# Queries per block of both fused kernels and the tensor-core K4
+# (csrc/bf_select.cuh SEL_BM, csrc/bf_topk_fused_tc.cu BM).
 _FUSED_BM = 64
 _FUSED_BLOCKS = 528  # blocks the CUDA-core fused kernel's grid aims for: 4 per SM
 _FUSED_MIN_ROWS = 1024  # shortest row range worth a block of its own
-_SUB_ROWS = 128  # store rows per sub-tile of both fused kernels; ranges are a multiple
+_SUB_ROWS = 128  # store rows per sub-tile of the fused kernels; ranges (and K4 tiles) a multiple
 
 # Lane codes of the C entry points (csrc/bf_scores.cuh).
 _LANES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8: 3, torch.uint8: 4}
@@ -105,9 +108,13 @@ class _Kernels:
         self.fused = self._fn("bf_topk_fused", [ptr] * 9 + [num] * 9 + [ptr])
         self.fused_tc = self._fn("bf_topk_fused_tc", [ptr] * 10 + [num] * 9 + [ptr])
         self.topc = self._fn("bf_topk_topc", [ptr] * 7 + [num] * 8 + [ptr])
+        self.topc_tc = self._fn("bf_topk_topc_tc", [ptr] * 8 + [num] * 10 + [ptr],
+                                source="bf_topk_fused_tc")
 
-    def _fn(self, name: str, argtypes: list):
-        fn = getattr(ctypes.CDLL(str(self.paths[name])), name)
+    def _fn(self, name: str, argtypes: list, source: Optional[str] = None):
+        """Entry point ``name`` of the library built from ``source`` (default:
+        the source of the same name)."""
+        fn = getattr(ctypes.CDLL(str(self.paths[source or name])), name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         return fn
@@ -242,6 +249,22 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _dsq(data, metric, count: int):
+    """Integer L2's int32 scratch [max(count, 1)] for a tensor-core launch,
+    which writes the rows' sums of squares into it; None elsewhere."""
+    if data.dtype.is_floating_point or metric != VecSimMetric.L2:
+        return None
+    return torch.empty((max(count, 1),), dtype=torch.int32, device=data.device)
+
+
+def _sms(device) -> int:
+    """SMs of a CUDA device, which the tensor-core launches fill in one wave.
+    A device other than CUDA (meta) has none; ``_run`` refuses it."""
+    if device.type != "cuda":
+        return 1
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _run(wrapper, name: str, data, call, counter: str = "launches") -> None:
     """Launch one kernel on ``data``'s device and current stream, raise on a
     refused launch, count it in ``wrapper.<counter>``. ``call(kernels,
@@ -309,9 +332,7 @@ def group_min_scores(queries: torch.Tensor, data: torch.Tensor,
             queries.data_ptr(), data.data_ptr(), _ptr(qf), _ptr(qi), _ptr(rf), out.data_ptr(),
             _LANES[data.dtype], B, D, n_tiles, tile_n, G, count, int(metric), stream))
         return out
-    dsq = None  # integer L2: the rows' sums of squares, written by the call
-    if not data.dtype.is_floating_point and metric == VecSimMetric.L2:
-        dsq = torch.empty((max(count, 1),), dtype=torch.int32, device=data.device)
+    dsq = _dsq(data, metric, count)
     _run(group_min_scores, "bf_topk_gm_tc", data, lambda kern, stream: kern.gm_tc(
         queries.data_ptr(), data.data_ptr(), _ptr(qf), _ptr(qi), _ptr(rf), _ptr(dsq),
         out.data_ptr(), _LANES[data.dtype], B, D, n_tiles, tile_n, G, count, int(metric),
@@ -333,11 +354,11 @@ def gm_tc_admits(queries: torch.Tensor, data: torch.Tensor) -> bool:
 
 
 def split_tf32(x: torch.Tensor):
-    """(hi, lo) fp32 tensors with hi + lo ~ x: the tensor-core K1's 3xTF32
-    split (``csrc/bf_topk_gm_tc.cu``) on any device. hi rounds x to TF32 (11
-    significant bits, nearest, ties away from zero: the integer form of
-    cvt.rna.tf32.f32), lo rounds x - hi (exact in fp32) the same way. For
-    finite x, |x - hi - lo| <= max(2^-22 |x|, 2^-137)."""
+    """(hi, lo) fp32 tensors with hi + lo ~ x: the tensor-core kernels'
+    3xTF32 split (``split_share`` in ``csrc/bf_tc.cuh``) on any device. hi
+    rounds x to TF32 (11 significant bits, nearest, ties away from zero: the
+    integer form of cvt.rna.tf32.f32), lo rounds x - hi (exact in fp32) the
+    same way. For finite x, |x - hi - lo| <= max(2^-22 |x|, 2^-137)."""
     def rna(v: torch.Tensor) -> torch.Tensor:
         bits = v.contiguous().view(torch.int32)
         return ((bits + 0x1000) & -0x2000).view(torch.float32)
@@ -540,10 +561,7 @@ def fused_topk(queries: torch.Tensor, data: torch.Tensor, sqnorms: Optional[torc
     count = max(0, min(int(count), N))
     tc = fused_tc_admits(queries, data)
     if tc:
-        # A device other than CUDA (meta) has no SM count; _run refuses it.
-        sms = (torch.cuda.get_device_properties(data.device).multi_processor_count
-               if data.device.type == "cuda" else 1)
-        rows, n_ranges = _fused_tc_ranges(B, count, sms)
+        rows, n_ranges = _fused_tc_ranges(B, count, _sms(data.device))
     else:
         rows, n_ranges = _fused_ranges(B, N)
     qf, qi, rf = _lane_aux(queries, sqnorms, metric, query_norms)
@@ -551,9 +569,7 @@ def fused_topk(queries: torch.Tensor, data: torch.Tensor, sqnorms: Optional[torc
     part_d = torch.empty((B, n_ranges, k), dtype=torch.float32, device=data.device)
     part_i = torch.empty((B, n_ranges, k), dtype=torch.int32, device=data.device)
     if tc:
-        dsq = None  # integer L2: the rows' sums of squares, written by the call
-        if not data.dtype.is_floating_point and metric == VecSimMetric.L2:
-            dsq = torch.empty((max(count, 1),), dtype=torch.int32, device=data.device)
+        dsq = _dsq(data, metric, count)
         _run(fused_topk, "bf_topk_fused_tc", data, lambda kern, stream: kern.fused_tc(
             queries.data_ptr(), data.data_ptr(), _ptr(qf), _ptr(qi), _ptr(rf), _ptr(dsq),
             _ptr(lo_d), _ptr(lo_i), part_d.data_ptr(), part_i.data_ptr(), _LANES[data.dtype],
@@ -653,8 +669,12 @@ def tile_topc(queries: torch.Tensor, data: torch.Tensor, sqnorms: Optional[torch
     order: (local_d [B, n_tiles, c] fp32, local_i [B, n_tiles, c] int32),
     rows >= count at +inf, unfilled slots (+inf, -1).
 
-    CUDA tensors launch the kernel (``tile_topc.launches`` counts the
-    launches); CPU tensors take ``tile_topc_ref``; anything else raises.
+    CUDA tensors launch one of K4's two kernels, chosen before the launch:
+    the tensor-core kernel (``bf_topk_topc_tc`` in
+    ``csrc/bf_topk_fused_tc.cu``, counted in ``tile_topc.tc_launches``)
+    where ``topc_tc_admits``, else the CUDA-core kernel
+    (``csrc/bf_topk_topc.cu``, ``tile_topc.launches``). CPU tensors take
+    ``tile_topc_ref``; anything else raises.
     """
     metric = VecSimMetric(metric)
     _check(queries, data, sqnorms, metric, query_norms)
@@ -665,17 +685,49 @@ def tile_topc(queries: torch.Tensor, data: torch.Tensor, sqnorms: Optional[torch
         return tile_topc_ref(queries, data, sqnorms, count, metric=metric, tile_n=tile_n, c=c,
                              query_norms=query_norms)
     B, D = queries.shape
+    count = max(0, min(int(count), data.shape[0]))
     qf, qi, rf = _lane_aux(queries, sqnorms, metric, query_norms)
     local_d = torch.empty((B, n_tiles, c), dtype=torch.float32, device=data.device)
     local_i = torch.empty((B, n_tiles, c), dtype=torch.int32, device=data.device)
-    _run(tile_topc, "bf_topk_topc", data, lambda kern, stream: kern.topc(
-        queries.data_ptr(), data.data_ptr(), _ptr(qf), _ptr(qi), _ptr(rf), local_d.data_ptr(),
-        local_i.data_ptr(), _LANES[data.dtype], B, D, n_tiles, tile_n, c,
-        min(int(count), data.shape[0]), int(metric), stream))
+    if not topc_tc_admits(queries, data, tile_n):
+        _run(tile_topc, "bf_topk_topc", data, lambda kern, stream: kern.topc(
+            queries.data_ptr(), data.data_ptr(), _ptr(qf), _ptr(qi), _ptr(rf),
+            local_d.data_ptr(), local_i.data_ptr(), _LANES[data.dtype], B, D, n_tiles, tile_n,
+            c, count, int(metric), stream))
+        return local_d, local_i
+    tiles, n_ranges = _topc_tc_ranges(B, -(-count // tile_n), _sms(data.device))
+    # The kernel writes the lists of its ranges' tiles; the tiles past the
+    # last range hold no live row.
+    local_d[:, tiles * n_ranges:] = float("inf")
+    local_i[:, tiles * n_ranges:] = -1
+    dsq = _dsq(data, metric, count)
+    _run(tile_topc, "bf_topk_topc_tc", data, lambda kern, stream: kern.topc_tc(
+        queries.data_ptr(), data.data_ptr(), _ptr(qf), _ptr(qi), _ptr(rf), _ptr(dsq),
+        local_d.data_ptr(), local_i.data_ptr(), _LANES[data.dtype], B, D, n_tiles, tile_n, c,
+        count, tiles, n_ranges, int(metric), stream), counter="tc_launches")
     return local_d, local_i
 
 
-tile_topc.launches = 0
+tile_topc.launches = 0  # CUDA-core kernel
+tile_topc.tc_launches = 0  # tensor-core kernel
+
+
+def topc_tc_admits(queries: torch.Tensor, data: torch.Tensor, tile_n: int) -> bool:
+    """Whether the tensor-core K4 takes these tensors: the tensor-core
+    kernels' TMA gate ``gm_tc_admits`` and tiles of whole 128-row sub-tiles,
+    so that every tile is one list of the kernel's ranges."""
+    return tile_n % _SUB_ROWS == 0 and gm_tc_admits(queries, data)
+
+
+def _topc_tc_ranges(B: int, live_tiles: int, sms: int) -> tuple:
+    """(tiles per range, number of ranges) of a tensor-core top-c launch
+    over the first ``live_tiles`` tiles: as ``_fused_tc_ranges``, one block
+    per SM in one wave (``sms // query blocks`` ranges, at least one), the
+    query blocks of a range next to each other, but ranges of whole
+    tiles."""
+    want = max(1, sms // -(-B // _FUSED_BM))
+    tiles = max(1, -(-live_tiles // want))
+    return tiles, max(1, -(-live_tiles // tiles))
 
 
 def tile_topc_ref(queries: torch.Tensor, data: torch.Tensor, sqnorms: Optional[torch.Tensor],
