@@ -57,6 +57,17 @@ check:
 6. An all-ties store must trip the group-min fallback, and a store with all
    near rows in one tile must trip the top-c truncation fallback; both must
    still answer exactly.
+7. HNSW at the reference's configuration (M = 16, efConstruction = 200):
+   ``create_index`` with no ``device`` (so on the card), then
+   ``bulk_build_device`` of 100,000 x 768 embedding-like fp32 Cosine rows;
+   ``search_knn_device`` of 1024 held-out rows at ef = 10, 100, 200, 500
+   (k = 10), each held against the port's exact flat index on the same rows
+   (kernel K1) for recall@10, which must reach 0.90 at ef = 200; the host
+   API (``topk_query_batch``, and 32 queries through
+   ``api.VecSimIndex_TopKQuery``, which must equal the batch's rows). HNSW
+   runs no kernel of ``csrc/``: it has no Pallas kernel to port. Prints
+   build seconds and vectors per second, ms, QPS, recall and host reads per
+   ef, and the peak device memory.
 
 Every timing line ends with the card's name and power limit. The script
 prints one JSON line of kernel results (one entry per kernel and lane) and,
@@ -811,6 +822,121 @@ def phase_fallbacks(dev):
           "fallback matches the float64 exact top-k", flush=True)
 
 
+# The HNSW phase: the reference's HNSW configuration (M = 16, efConstruction
+# = 200; benchmarks/run_all.py) on N embedding-like fp32 Cosine rows, N a cut
+# of the reference's 1M for the smoke's time (PERF.md), with 1024 held-out
+# rows of the same generation as queries.
+HNSW_N, HNSW_M, HNSW_EFC = 100_000, 16, 200
+HNSW_EFS = (10, 100, 200, 500)
+HNSW_MIN_RECALL = 0.90  # recall@10 at ef = 200; the JAX package: 0.928 at 200k
+
+
+def phase_hnsw(dev, smi, n=HNSW_N):
+    """Build the HNSW index on the card through the entry points a user
+    calls, search it at each ef, and hold recall@10 against the port's exact
+    flat index on the same rows (``search_knn_device``, kernel K1). Prints
+    build seconds and vectors per second, QPS, recall and host reads per ef,
+    and the peak device memory, each beside the card's name and power
+    limit. Returns {"build_s", "qps", "recall", ...}."""
+    from vectorsimilarity_tpu_torch import api, config, create_index
+    from vectorsimilarity_tpu_torch import types as T
+    from vectorsimilarity_tpu_torch.core.store import _bucket_capacity
+    from vectorsimilarity_tpu_torch.ops import graph_search as gs
+    from vectorsimilarity_tpu_torch.utils.synthetic import embedding_like
+
+    k = 10
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = embedding_like(gen, n + BATCH, DIM)
+    data, queries = rows[:n], rows[n:]
+    idx = create_index(T.VecSimParams(algo=T.VecSimAlgo.HNSWLIB, hnswParams=T.HNSWParams(
+        type=T.VecSimType.FLOAT32, dim=DIM, metric=T.VecSimMetric.Cosine,
+        M=HNSW_M, efConstruction=HNSW_EFC, initialCapacity=n)))
+    if idx.device.type != "cuda":
+        raise AssertionError(f"create_index put the HNSW index on {idx.device}")
+    reads0, it0 = gs.host_reads, gs.iterations
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx.bulk_build_device(data, batch=config.build_batch, scan_batches=config.build_scan_batches)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_batches = -(-n // config.build_batch)
+    out = {"n": n, "build_s": build_s, "build_vps": n / build_s,
+           "build_reads": (gs.host_reads - reads0) / n_batches,
+           "build_iters": (gs.iterations - it0) / n_batches, "dropped": idx.build_dropped()}
+    print(f"# hnsw build {n} x {DIM} fp32 Cosine M={HNSW_M} efC={HNSW_EFC}: {build_s:.1f} s, "
+          f"{n / build_s:.1f} vectors/s, {out['build_reads']:.1f} host reads and "
+          f"{out['build_iters']:.1f} loop iterations per batch of {config.build_batch}, "
+          f"max level {idx.max_level}, dropped back-edges {out['dropped']}; card {smi}",
+          flush=True)
+    if out["dropped"]:
+        print(f"# hnsw build dropped {out['dropped']} reverse edges (row cap)", flush=True)
+
+    # Ground truth: the port's exact flat index on the same rows (K1).
+    bf = create_index(T.VecSimParams(algo=T.VecSimAlgo.BF, bfParams=T.BFParams(
+        type=T.VecSimType.FLOAT32, dim=DIM, metric=T.VecSimMetric.Cosine)))
+    cap = _bucket_capacity(n, bf.store.block_size)
+    padded = torch.zeros((cap, DIM), dtype=torch.float32, device=dev)
+    padded[:n] = data
+    bf.store.adopt_device({"data": padded}, count=n)
+    _, truth = bf.search_knn_device(queries, k)
+    truth = truth.cpu().numpy()
+    del padded, bf
+
+    def recall(ids):
+        ids = ids[:, :k]
+        return float(np.mean([len(set(a.tolist()) & set(b.tolist())) / k
+                              for a, b in zip(ids, truth)]))
+
+    out["qps"], out["recall"], out["reads"], out["ms"] = {}, {}, {}, {}
+    for ef in HNSW_EFS:
+        idx.search_knn_device(queries, k, ef)  # warm-up
+        torch.cuda.synchronize()
+        times, reads = [], 0
+        for _ in range(3):
+            r0 = gs.host_reads
+            t0 = time.perf_counter()
+            d, i = idx.search_knn_device(queries, k, ef)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            reads = gs.host_reads - r0
+        ms = statistics.median(times) * 1e3
+        rec = recall(i.cpu().numpy())
+        out["qps"][ef], out["recall"][ef], out["reads"][ef], out["ms"][ef] = (
+            BATCH * 1e3 / ms, rec, reads, ms)
+        print(f"# hnsw search B={BATCH} k={k} ef={ef}: {ms:.2f} ms per batch (median of "
+              f"{[round(t * 1e3, 2) for t in times]}), {BATCH * 1e3 / ms:.1f} QPS, recall@10 "
+              f"{rec:.4f}, {reads} host reads per batch; card {smi}", flush=True)
+        if not torch.isfinite(d[:, :k]).all():
+            raise AssertionError(f"non-finite distances at ef={ef}")
+    # The host API: the batch at ef = 200, and 32 queries one by one through
+    # the C API's VecSimIndex_TopKQuery; labels are row ids here.
+    qp = T.VecSimQueryParams()
+    qp.hnswRuntimeParams.efRuntime = 200
+    host = np.asarray(queries.cpu())
+    t0 = time.perf_counter()
+    replies = idx.topk_query_batch(host, k, qp)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    rec = recall(np.stack([r.ids for r in replies]))
+    one = [api.VecSimIndex_TopKQuery(idx, host[j], k, qp) for j in range(32)]
+    for j, r in enumerate(one):
+        if len(r) != k or not np.array_equal(r.ids, replies[j].ids):
+            raise AssertionError(f"VecSimIndex_TopKQuery of query {j} differs from the batch")
+    out["host_ms"], out["host_recall"] = host_ms, rec
+    print(f"# hnsw host API topk_query_batch B={BATCH} ef=200: {host_ms:.2f} ms, recall@10 "
+          f"{rec:.4f}; 32 VecSimIndex_TopKQuery calls equal the batch's rows; card {smi}",
+          flush=True)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"# hnsw peak device memory {out['peak_gib']:.2f} GiB; card {smi}", flush=True)
+    if out["recall"][200] < HNSW_MIN_RECALL or rec < HNSW_MIN_RECALL:
+        raise AssertionError(f"HNSW recall@10 at ef=200 below {HNSW_MIN_RECALL}: "
+                             f"{out['recall'][200]:.4f} (host API {rec:.4f})")
+    del idx, rows, data, queries
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -874,6 +1000,10 @@ def main() -> int:
 
     # 6. The exact fallbacks.
     phase_fallbacks(dev)
+
+    # 7. HNSW, built and searched on the card.
+    hnsw = phase_hnsw(dev, smi)
+    print("# hnsw json " + json.dumps(hnsw), flush=True)
 
     print(f"# all phases passed in {time.perf_counter() - t_start:.1f} s; card {smi}")
     print(smi)

@@ -180,9 +180,9 @@ def test_convert_carries_a_jax_index_with_deletes(multi, small_tiles):
 
 
 def test_unported_algorithms_raise():
-    p = tt.VecSimParams(algo=tt.VecSimAlgo.HNSWLIB)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcreate(p)
+    for algo in (tt.VecSimAlgo.SVS, tt.VecSimAlgo.TIERED):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tcreate(tt.VecSimParams(algo=algo))
 
 
 def _plain(x):

@@ -53,3 +53,91 @@ def assert_replies_parity(port, ref, tol: float = TOL) -> None:
         assert int(p.code) == int(r.code)
         assert len(p) == len(r)
         assert_topk_parity(p.scores[None], p.ids[None], r.scores[None], r.ids[None], tol)
+
+
+# ---------------------------------------------------------------------------
+# HNSW: graphs made with numpy, and the one JAX HNSW build of the tests
+# ---------------------------------------------------------------------------
+
+
+def numpy_graph(rng, n: int, d: int, m0: int, lane: str = "f32", upper_every: int = 6):
+    """A two-level graph made with numpy: rows ``x`` [n, d] (unit fp32
+    vectors, or int8 values), level-0 links [n, m0] (each node's m0 // 2
+    nearest by L2 and random others, 4..m0 of them, distinct, never itself,
+    -1 padded) and one upper level over every ``upper_every``-th node:
+    ``ulinks`` [ucap, 1, m0 // 2], ``upper_row`` [n] (-1: no upper row) and
+    the entry node. Returns a dict of numpy arrays and ints."""
+    if lane == "s8":
+        x = rng.integers(-128, 128, size=(n, d)).astype(np.int8)
+    else:
+        x = unit_rows(rng, n, d)
+    xf = x.astype(np.float64)
+    d2 = ((xf[:, None, :] - xf[None, :, :]) ** 2).sum(-1)
+    np.fill_diagonal(d2, np.inf)
+
+    def links_of(nodes, width):
+        out = np.full((len(nodes), width), -1, dtype=np.int32)
+        sub = d2[np.ix_(nodes, nodes)]
+        near = np.argsort(sub, axis=1, kind="stable")
+        for r in range(len(nodes)):
+            cnt = int(rng.integers(4, width + 1))
+            pick = list(near[r, : width // 2])
+            others = [j for j in rng.permutation(len(nodes)) if j != r and j not in pick]
+            pick = (pick + others)[:cnt]
+            out[r, : len(pick)] = np.asarray(nodes)[pick]
+        return out
+
+    links0 = links_of(np.arange(n), m0)
+    upper = np.arange(0, n, upper_every)
+    ucap = 1 << int(np.ceil(np.log2(len(upper) + 1)))
+    ulinks = np.full((ucap, 1, m0 // 2), -1, dtype=np.int32)
+    ulinks[: len(upper), 0] = links_of(upper, m0 // 2)
+    upper_row = np.full(n, -1, dtype=np.int32)
+    upper_row[upper] = np.arange(len(upper), dtype=np.int32)
+    return {"x": x, "links0": links0, "ulinks": ulinks, "upper_row": upper_row,
+            "entry": int(upper[0])}
+
+
+def lane_aux(x: np.ndarray, metric_name: str, lane: str):
+    """(sqnorm, norm) columns a store of ``x`` keeps: sqnorm for L2, norm for
+    integer Cosine, else None."""
+    xf = x.astype(np.float64 if lane == "s8" else np.float32)
+    sq = (xf * xf).sum(1).astype(np.float32)
+    sqnorm = sq if metric_name == "L2" else None
+    norm = np.sqrt(sq).astype(np.float32) if (lane == "s8" and metric_name == "Cosine") else None
+    return sqnorm, norm
+
+
+HNSW_N, HNSW_DIM, HNSW_BATCH = 384, 16, 128
+_JAX_HNSW = None
+
+
+def jax_hnsw_index():
+    """The tests' one JAX HNSW build, made once per process and shared:
+    ``HNSW_N`` x ``HNSW_DIM`` fp32 Cosine rows (seed 0), M = 8, efC = 64,
+    level seed 200 (the index's default), inserted by one
+    ``add_vector_batch`` with ``config.build_batch = HNSW_BATCH``: three
+    connect batches of one shape (one compile), the later ones searching the
+    graph of the earlier. Returns (index, rows)."""
+    global _JAX_HNSW
+    if _JAX_HNSW is None:
+        import vectorsimilarity_tpu as vs
+        from vectorsimilarity_tpu import config
+
+        x = unit_rows(np.random.default_rng(0), HNSW_N, HNSW_DIM)
+        idx = vs.create_index(hnsw_params(vs))
+        saved, config.build_batch = config.build_batch, HNSW_BATCH
+        try:
+            idx.add_vector_batch(x, list(range(HNSW_N)))
+        finally:
+            config.build_batch = saved
+        _JAX_HNSW = (idx, x)
+    return _JAX_HNSW
+
+
+def hnsw_params(pkg, multi: bool = False):
+    """``VecSimParams`` of the shared HNSW configuration, from either
+    package's module (``pkg`` exports the types)."""
+    return pkg.VecSimParams(algo=pkg.VecSimAlgo.HNSWLIB, hnswParams=pkg.HNSWParams(
+        type=pkg.VecSimType.FLOAT32, dim=HNSW_DIM, metric=pkg.VecSimMetric.Cosine,
+        multi=multi, M=8, efConstruction=64))

@@ -1,18 +1,24 @@
 """vectorsimilarity_tpu_torch — the PyTorch/CUDA port of ``vectorsimilarity_tpu``.
 
 A second package beside the JAX one, ported slice by slice (ROADMAP.md).
-This slice serves the flat (brute-force) index: add / delete / overwrite,
-exact k-NN (batched and device-resident), range queries, batch iterators and
-timeouts; L2 / IP / Cosine. fp32, bf16, fp16, int8 and uint8 stores answer
-k-NN through three hand-written kernels (``csrc/``: group-min for k <= 32,
-fused top-k for k <= 128, per-tile top-c for k <= 2048), fp64 stores through
-the exact streaming scan. Stores live on the current CUDA device unless the
-caller passes ``device="cpu"``. The package imports torch and never jax.
+The flat (brute-force) index: add / delete / overwrite, exact k-NN (batched
+and device-resident), range queries, batch iterators and timeouts; L2 / IP /
+Cosine. fp32, bf16, fp16, int8 and uint8 stores answer k-NN through three
+hand-written kernels (``csrc/``: group-min for k <= 32, fused top-k for k <=
+128, per-tile top-c for k <= 2048), fp64 stores through the exact streaming
+scan. The HNSW index, built and searched on the device (``ops/graph_build.py``,
+``ops/graph_search.py``): inserts of fresh labels, bulk builds, tombstones,
+k-NN, range queries and batch iterators. The query surface of both:
+``api`` (the C API's entry points), ``query_params``, hybrid (filtered)
+queries and the ad-hoc scoring context. Stores live on the current CUDA
+device unless the caller passes ``device="cpu"``. The package imports torch
+and never jax.
 """
 
 from .types import (  # noqa: F401
     DEFAULT_BLOCK_SIZE,
     BFParams,
+    HNSWParams,
     QueryReplyOrder,
     VecSearchMode,
     VecSimAlgo,
@@ -23,7 +29,9 @@ from .types import (  # noqa: F401
     VecSimParams,
     VecSimQueryParams,
     VecSimQueryReplyCode,
+    VecSimResolveCode,
     VecSimType,
+    VecsimQueryType,
 )
 from .core.interface import VecSimIndexBase  # noqa: F401
 from .core.results import QueryReply, filter_results_by_id, merge_replies  # noqa: F401

@@ -1,6 +1,6 @@
-"""Runtime engine configuration of the flat index's top-k.
+"""Runtime engine configuration: the flat index's top-k and the HNSW graph.
 
-Counterpart of ``vectorsimilarity_tpu/config.py`` for the flat index. The
+Counterpart of ``vectorsimilarity_tpu/config.py``. For the flat index, the
 engine bands stay the JAX package's, so both packages pick the same engine
 for a given k:
 
@@ -115,3 +115,52 @@ def bigk_enabled(kind: str, k: int, capacity: int, dtype) -> bool:
     if not _kernel_common(kind, capacity, dtype) or not max_k < k <= bigk_max:
         return False
     return max(capacity // tile_n, 1) * local_c >= k
+
+
+# ---------------------------------------------------------------------------
+# HNSW (``ops/graph_search.py``, ``ops/graph_build.py``, ``indexes/hnsw.py``).
+# The defaults are the JAX package's, so both packages build and search the
+# same graph the same way.
+# ---------------------------------------------------------------------------
+
+# Connect each insert batch on the device (``graph_build.connect_batch``).
+# The host-orchestrated construction of the JAX package is not ported yet:
+# ``False`` raises.
+graph_build_device: bool = True
+build_batch: int = 1024  # max rows per connect_batch call (a power of two)
+build_scan_batches: int = 4  # batches per ``build_scan`` call of a bulk build
+build_reverse_cap: int = 16  # new back-edges joining one row's re-prune
+build_beam_expand: int = 4  # candidates popped per construction-beam iteration
+# bf16 navigation shadow of fp32 stores for construction beams: candidate
+# RANKING gathers half the bytes; the diversity prune recomputes its anchor
+# leg in fp32, so keep/discard compares stay fp32.
+build_nav_bf16: bool = True
+
+# Query-side beam expansion: candidates popped per search-beam iteration.
+# "auto" picks 1 below ``search_expand_auto_ef`` and 4 at or above it; an int
+# forces that expansion (1 = step-for-step ``searchLayer`` parity).
+search_beam_expand = "auto"
+search_expand_auto_ef: int = 192
+
+
+def resolve_search_expand(ef: int) -> int:
+    """Per-query beam expansion for runtime ef (see search_beam_expand)."""
+    e = search_beam_expand
+    if e == "auto":
+        return 4 if ef >= search_expand_auto_ef else 1
+    return max(int(e), 1)
+
+
+# bf16 navigation shadow for QUERY beams of fp32 stores; the returned window
+# is re-scored exactly in fp32 (``graph_search.exact_rerank``), so reported
+# distances, tie order and the range radius filter stay exact.
+search_nav_bf16: bool = True
+
+# Beam-search iteration cap: max_iters = factor * ef + base (divided by the
+# expansion), the bound on one search's loop.
+beam_iter_factor: int = 8
+beam_iter_base: int = 64
+# The graph loops (greedy descent, beam search) read their "all rows done"
+# flag from the device once every this many iterations, and timeout-aware
+# HNSW queries poll the user's callback as often.
+timeout_poll_iters: int = 32

@@ -1,11 +1,25 @@
-"""Carry a flat index's state across packages as numpy.
+"""Carry an index's state across packages as numpy.
 
 ``export_state`` reads the state of a flat index of either package — the
 JAX package's or this one's — through attributes the two share (params,
 store, label map), and returns plain Python and numpy values only.
 ``bruteforce_from_state`` builds this package's ``BruteForceIndex`` from
-such a state. Nothing here imports jax: a caller holding a JAX index hands
-it over, and only numpy comes back out of it.
+such a state.
+
+``export_hnsw_state`` does the same for an HNSW index of either package: the
+store's host columns (data, label, ``level``, ``upper_row``, ``links0``,
+``nlinks0``, ``flags``, and ``sqnorm`` / ``norm`` / ``slot`` where the index
+has them), the upper store's ``links``, ``nlinks`` and ``vec``, the entry
+point, the maximum level, the tombstone count, the label map and the level
+sampler's RNG state. Device-built links are pulled to the host first.
+``hnsw_from_state`` builds this package's ``HNSWIndex`` holding the same
+graph, and ``hnsw_from_jax(index, device=...)`` chains the two: a JAX
+``HNSWIndex`` carried across, so both packages can be searched on one graph.
+An HNSW index of this package can be carried from one device to another the
+same way.
+
+Nothing here imports jax: a caller holding a JAX index hands it over, and
+only numpy comes back out of it.
 """
 
 from __future__ import annotations
@@ -15,7 +29,8 @@ import dataclasses
 import numpy as np
 
 from .indexes.brute_force import BruteForceIndex
-from .types import BFParams, VecSimMetric, VecSimType
+from .indexes.hnsw import HNSWIndex
+from .types import BFParams, HNSWParams, VecSimMetric, VecSimType
 
 
 def _label_state(labels) -> dict:
@@ -29,21 +44,54 @@ def _label_state(labels) -> dict:
     return {"label_to_id": {int(l): int(i) for l, i in labels.label_to_id.items()}}
 
 
+def _store_state(store) -> dict:
+    """count, capacity and host arrays (rows [0, count), after
+    ``pull_host``) of a block store of either package."""
+    store.pull_host()
+    count = int(store.count)
+    return {
+        "count": count,
+        "capacity": int(store.capacity),
+        "arrays": {n: np.array(a[:count]) for n, a in store.host.items()},
+    }
+
+
+def _params_state(params) -> dict:
+    values = {f.name: getattr(params, f.name) for f in dataclasses.fields(params)}
+    # Enum members (ints) of either package become plain ints.
+    return {n: int(v) if isinstance(v, int) else v for n, v in values.items()}
+
+
 def export_state(index) -> dict:
     """State of a flat index: params (plain values), count, capacity, the
     store's host arrays (rows [0, count), after ``pull_host``) and the label
     map."""
-    index.store.pull_host()
-    count = int(index.store.count)
-    params = {f.name: getattr(index.params, f.name) for f in dataclasses.fields(index.params)}
     return {
-        # Enum members (ints) of either package become plain ints.
-        "params": {n: int(v) if isinstance(v, int) else v for n, v in params.items()},
-        "count": count,
-        "capacity": int(index.store.capacity),
-        "arrays": {n: np.array(a[:count]) for n, a in index.store.host.items()},
+        "params": _params_state(index.params),
+        **_store_state(index.store),
         "labels": _label_state(index.labels),
     }
+
+
+def _fill_store(store, state: dict) -> None:
+    arrays = state["arrays"]
+    if set(arrays) != set(store.fields):
+        raise ValueError(f"fields {sorted(arrays)} do not match {sorted(store.fields)}")
+    store._resize(state["capacity"])
+    if state["count"]:
+        store.append({n: arrays[n] for n in store.fields})
+
+
+def _fill_labels(index, lab: dict) -> None:
+    if index.multi:
+        m = index.labels
+        m.label_to_ids = {l: set(ids) for l, ids in lab["label_to_ids"].items()}
+        m.label_to_slot = dict(lab["label_to_slot"])
+        m._slot_to_label = {s: l for l, s in m.label_to_slot.items()}
+        m._free_slots = list(lab["free_slots"])
+        m._next_slot = lab["next_slot"]
+    else:
+        index.labels.label_to_id = dict(lab["label_to_id"])
 
 
 def bruteforce_from_state(state: dict, *, device=None) -> BruteForceIndex:
@@ -60,21 +108,58 @@ def bruteforce_from_state(state: dict, *, device=None) -> BruteForceIndex:
         blockSize=int(p["blockSize"]),
     )
     index = BruteForceIndex(params, device=device)
-    store = index.store
-    arrays = state["arrays"]
-    if set(arrays) != set(store.fields):
-        raise ValueError(f"fields {sorted(arrays)} do not match {sorted(store.fields)}")
-    store._resize(state["capacity"])
-    if state["count"]:
-        store.append({n: arrays[n] for n in store.fields})
-    lab = state["labels"]
-    if params.multi:
-        m = index.labels
-        m.label_to_ids = {l: set(ids) for l, ids in lab["label_to_ids"].items()}
-        m.label_to_slot = dict(lab["label_to_slot"])
-        m._slot_to_label = {s: l for l, s in m.label_to_slot.items()}
-        m._free_slots = list(lab["free_slots"])
-        m._next_slot = lab["next_slot"]
-    else:
-        index.labels.label_to_id = dict(lab["label_to_id"])
+    _fill_store(index.store, state)
+    _fill_labels(index, state["labels"])
     return index
+
+
+def export_hnsw_state(index) -> dict:
+    """State of an HNSW index of either package (see the module docstring);
+    plain Python and numpy values only."""
+    index._ensure_host_links()
+    return {
+        "params": _params_state(index.params),
+        **_store_state(index.store),
+        "upper": _store_state(index.upper),
+        "lmax": int(index.lmax),
+        "entry_id": int(index.entry_id),
+        "max_level": int(index.max_level),
+        "num_marked_deleted": int(index.num_marked_deleted),
+        "labels": _label_state(index.labels),
+        "rng": index._rng.bit_generator.state,
+    }
+
+
+def hnsw_from_state(state: dict, *, device=None) -> HNSWIndex:
+    """This package's ``HNSWIndex`` on ``device`` (the current CUDA device by
+    default, the CPU only on request) holding the exported graph, rows, ids,
+    labels, entry point and level sampler."""
+    p = state["params"]
+    params = HNSWParams(
+        type=VecSimType(p["type"]),
+        dim=int(p["dim"]),
+        metric=VecSimMetric(p["metric"]),
+        multi=bool(p["multi"]),
+        initialCapacity=int(p["initialCapacity"]),
+        blockSize=int(p["blockSize"]),
+        M=int(p["M"]),
+        efConstruction=int(p["efConstruction"]),
+        efRuntime=int(p["efRuntime"]),
+        epsilon=float(p["epsilon"]),
+    )
+    index = HNSWIndex(params, device=device)
+    index.lmax = state["lmax"]
+    index.upper = index._new_upper_store(index.lmax)
+    _fill_store(index.store, state)
+    _fill_store(index.upper, state["upper"])
+    _fill_labels(index, state["labels"])
+    index.entry_id = state["entry_id"]
+    index.max_level = state["max_level"]
+    index.num_marked_deleted = state["num_marked_deleted"]
+    index._rng.bit_generator.state = state["rng"]
+    return index
+
+
+def hnsw_from_jax(index, *, device=None) -> HNSWIndex:
+    """A JAX package ``HNSWIndex`` carried across to this package's."""
+    return hnsw_from_state(export_hnsw_state(index), device=device)

@@ -50,7 +50,8 @@ def pow2_bucket(n: int, lo: int = 1) -> int:
 
 
 class DeviceVectorIndex(VecSimIndexBase):
-    """Base for device-backed indexes: vector store + labels + preprocessing."""
+    """Base for device-backed indexes (BF, HNSW): vector store + labels +
+    preprocessing."""
 
     def __init__(
         self,
@@ -62,6 +63,7 @@ class DeviceVectorIndex(VecSimIndexBase):
         block_size: int,
         device=None,
         log_ctx: Any = None,
+        extra_fields: Optional[dict[str, FieldSpec]] = None,
         initial_capacity: int = 0,
     ):
         super().__init__(log_ctx)
@@ -96,6 +98,9 @@ class DeviceVectorIndex(VecSimIndexBase):
             fields["sqnorm"] = FieldSpec((), sq_dtype)
         if self.is_int and self.metric == VecSimMetric.Cosine:
             fields["norm"] = FieldSpec((), np.float32)
+        if extra_fields:
+            # Per-row columns of the subclass (HNSW: level, links, flags).
+            fields.update(extra_fields)
 
         self.store = BlockStore(fields, self.block_size, device=self.device)
         if initial_capacity:

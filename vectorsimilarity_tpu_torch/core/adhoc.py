@@ -1,0 +1,52 @@
+"""Ad-hoc brute-force scoring context.
+
+Counterpart of ``vectorsimilarity_tpu/core/adhoc.py`` (reference:
+``vec_sim_adhoc_bf_ctx.h`` + ``vec_sim.h:236-274``). The hybrid ad-hoc
+policy scores each filtered label directly instead of searching; the context
+holds the preprocessed query so repeated per-label scoring skips
+preprocessing, and ``get_exact_distances`` scores all requested labels in
+one device gather (``graph_search.dists_to_ids``) instead of a per-label
+loop. Serves the flat and the HNSW index.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.graph_search import StoreCtx, dists_to_ids
+
+
+class AdhocBfCtx:
+    def __init__(self, index, query: np.ndarray):
+        self.index = index
+        self._q, self._qn = index.preprocess_queries(np.asarray(query).reshape(1, -1))
+
+    def get_distance(self, label: int) -> float:
+        """Min distance to the label's vectors; NaN if absent
+        (``VecSimIndex_AdhocBfCtx_GetDistanceFrom``)."""
+        return float(self.get_exact_distances([label])[0])
+
+    def get_exact_distances(self, labels) -> np.ndarray:
+        """Distances for many labels in one device call
+        (``VecSimIndex_AdhocBfCtx_GetExactDistances``)."""
+        index = self.index
+        ids_per_label = [index.labels.ids_of(int(l)) for l in labels]
+        width = max((len(x) for x in ids_per_label), default=0)
+        if width == 0:
+            return np.full(len(labels), np.nan)
+        ids = np.full((len(labels), width), -1, dtype=np.int32)
+        for r, lst in enumerate(ids_per_label):
+            ids[r, : len(lst)] = lst
+        dev = index.store.device_arrays()
+        ctx = StoreCtx(data=dev["data"], sqnorm=dev.get("sqnorm"), norm=dev.get("norm"))
+        n = len(labels)
+        q = index.to_device(self._q).expand(n, -1)
+        qn = None if self._qn is None else index.to_device(self._qn).expand(n)
+        d = dists_to_ids(
+            q, torch.from_numpy(ids).to(index.device), ctx,
+            metric=index.metric, kind=index.store_kind, q_norm=qn,
+        ).cpu().numpy()
+        best = d.min(axis=1)
+        best[~np.isfinite(best)] = np.nan
+        return best

@@ -1,26 +1,47 @@
 """Index factories — params to concrete index.
 
 Counterpart of ``vectorsimilarity_tpu/indexes/factory.py`` (reference:
-``index_factories/index_factory.cpp:17-73``). Only the flat index is ported;
-the other algorithms raise until their slice of the port lands (ROADMAP.md,
-queue 1).
+``index_factories/index_factory.cpp:17-73``). The flat and HNSW indexes are
+ported; the other algorithms raise until their slice of the port lands
+(ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from ..types import DEFAULT_BLOCK_SIZE, BFParams, VecSimAlgo, VecSimParams
+from ..types import (
+    DEFAULT_BLOCK_SIZE,
+    HNSW_DEFAULT_EF_C,
+    HNSW_DEFAULT_EF_RT,
+    HNSW_DEFAULT_EPSILON,
+    HNSW_DEFAULT_M,
+    BFParams,
+    HNSWParams,
+    VecSimAlgo,
+    VecSimParams,
+    numpy_dtype,
+)
 
-_NOT_PORTED = {
-    VecSimAlgo.HNSWLIB: "HNSW is ROADMAP slice 3",
-    VecSimAlgo.TIERED: "the tiered index is ROADMAP slice 4",
-    VecSimAlgo.SVS: "SVS-Vamana is ROADMAP slice 5",
+NOT_PORTED = {
+    VecSimAlgo.TIERED: "the tiered index is not ported yet (ROADMAP.md queue 1)",
+    VecSimAlgo.SVS: "SVS-Vamana is not ported yet (ROADMAP.md queue 1)",
 }
 
 
 def _with_defaults_bf(p: BFParams) -> BFParams:
     return dataclasses.replace(p, blockSize=p.blockSize or DEFAULT_BLOCK_SIZE)
+
+
+def _with_defaults_hnsw(p: HNSWParams) -> HNSWParams:
+    return dataclasses.replace(
+        p,
+        blockSize=p.blockSize or DEFAULT_BLOCK_SIZE,
+        M=p.M or HNSW_DEFAULT_M,
+        efConstruction=p.efConstruction or HNSW_DEFAULT_EF_C,
+        efRuntime=p.efRuntime or HNSW_DEFAULT_EF_RT,
+        epsilon=p.epsilon or HNSW_DEFAULT_EPSILON,
+    )
 
 
 def create_index(params: VecSimParams, *, device=None):
@@ -33,4 +54,34 @@ def create_index(params: VecSimParams, *, device=None):
 
         return BruteForceIndex(_with_defaults_bf(params.bfParams), params.logCtx,
                                device=device)
-    raise NotImplementedError(f"{algo.name} is not ported yet: {_NOT_PORTED[algo]}")
+    if algo == VecSimAlgo.HNSWLIB:
+        from .hnsw import HNSWIndex
+
+        return HNSWIndex(_with_defaults_hnsw(params.hnswParams), params.logCtx,
+                         device=device)
+    raise NotImplementedError(NOT_PORTED[algo])
+
+
+def _check_ported(algo: VecSimAlgo) -> None:
+    if algo in NOT_PORTED:
+        raise NotImplementedError(NOT_PORTED[algo])
+
+
+def estimate_initial_size(params: VecSimParams) -> int:
+    """Rough initial memory footprint (``EstimateInitialSize`` parity)."""
+    _check_ported(VecSimAlgo(params.algo))
+    p = params.algo_params
+    block = p.blockSize or DEFAULT_BLOCK_SIZE
+    return block * (p.dim * numpy_dtype(p.type).itemsize + 16)
+
+
+def estimate_element_size(params: VecSimParams) -> int:
+    """Per-vector incremental memory (``EstimateElementSize`` parity)."""
+    algo = VecSimAlgo(params.algo)
+    _check_ported(algo)
+    p = params.algo_params
+    base = p.dim * numpy_dtype(p.type).itemsize + 8 + 4
+    if algo == VecSimAlgo.HNSWLIB:
+        M = getattr(p, "M", 0) or HNSW_DEFAULT_M
+        base += (2 * M + M) * 4  # level-0 + expected upper-level links
+    return base
