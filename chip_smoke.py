@@ -68,6 +68,26 @@ check:
    runs no kernel of ``csrc/``: it has no Pallas kernel to port. Prints
    build seconds and vectors per second, ms, QPS, recall and host reads per
    ef, and the peak device memory.
+8. The write path on phase 7's index before it is freed: 64 eager
+   ``delete_vector`` calls, one ``add_vector_batch`` overwriting 1024 live
+   labels (the bulk branch), ``mark_delete`` of 1024 more and one
+   ``delete_tombstoned_bulk``, then ``topk_query_batch`` (B = 1024, k = 10,
+   ef = 200): recall@10 by label against the exact flat index over the
+   live rows at least 0.90, no deleted label in a reply, each overwritten
+   label first for its new vector within 1e-4. Prints ms per delete, the
+   seconds of the overwrite and of the bulk pass, and the rows repaired.
+9. The tiered HNSW index: ``create_index(VecSimAlgo.TIERED)`` (768-d fp32
+   Cosine, M = 16, efC = 200, swapJobThreshold 1024, a
+   ``JobQueueThreadPool(2)``), its backend prebuilt by ``bulk_build_device``
+   on 100,000 rows; a writer thread ingests 8192 new vectors by
+   ``add_vector`` while the main thread loops ``topk_query_batch`` until the
+   queue has migrated them all (K1 must answer the flat tier in that
+   window); ``wait_for_quiescence(300)``; 1024 deletes, the last of which
+   reaches the threshold and runs the GC. recall@10 at least 0.90 after the
+   ingest and after the GC, no deleted label in a reply, and no thread may
+   raise (``threading.excepthook`` records every exception). Prints vectors
+   per second and QPS over the same window, the migration batches, the GC
+   seconds and the peak device memory.
 
 Every timing line ends with the card's name and power limit. The script
 prints one JSON line of kernel results (one entry per kernel and lane) and,
@@ -83,6 +103,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -831,16 +852,51 @@ HNSW_EFS = (10, 100, 200, 500)
 HNSW_MIN_RECALL = 0.90  # recall@10 at ef = 200; the JAX package: 0.928 at 200k
 
 
-def phase_hnsw(dev, smi, n=HNSW_N):
+def exact_labels(data, labels, queries, k):
+    """Labels [B, k] of the exact top-k of ``queries`` over the fp32 Cosine
+    rows ``data`` [n, DIM] on the card (``labels`` [n] numpy, the label of
+    each row): the port's flat index (``search_knn_device``, kernel K1)."""
+    from vectorsimilarity_tpu_torch import create_index
+    from vectorsimilarity_tpu_torch import types as T
+    from vectorsimilarity_tpu_torch.core.store import _bucket_capacity
+
+    n = data.shape[0]
+    bf = create_index(T.VecSimParams(algo=T.VecSimAlgo.BF, bfParams=T.BFParams(
+        type=T.VecSimType.FLOAT32, dim=DIM, metric=T.VecSimMetric.Cosine)))
+    padded = torch.zeros((_bucket_capacity(n, bf.store.block_size), DIM), dtype=torch.float32,
+                         device=data.device)
+    padded[:n] = data
+    bf.store.adopt_device({"data": padded}, count=n)
+    _, ids = bf.search_knn_device(queries, k)
+    return np.asarray(labels)[ids.cpu().numpy()]
+
+
+def label_recall(got, truth):
+    """Mean share of each row of ``truth`` [B, k] found in the same row of
+    ``got`` [B, >= k] (labels; the first k columns count)."""
+    k = truth.shape[1]
+    return float(np.mean([len(set(a[:k].tolist()) & set(b.tolist())) / k
+                          for a, b in zip(got, truth)]))
+
+
+def reply_labels(replies, k):
+    """The labels of a list of replies as [B, k], -1 where a reply is short."""
+    out = np.full((len(replies), k), -1, dtype=np.int64)
+    for j, r in enumerate(replies):
+        out[j, : len(r)] = r.ids[:k]
+    return out
+
+
+def phase_hnsw(dev, smi, n=HNSW_N, writes=True):
     """Build the HNSW index on the card through the entry points a user
     calls, search it at each ef, and hold recall@10 against the port's exact
     flat index on the same rows (``search_knn_device``, kernel K1). Prints
     build seconds and vectors per second, QPS, recall and host reads per ef,
     and the peak device memory, each beside the card's name and power
-    limit. Returns {"build_s", "qps", "recall", ...}."""
+    limit. With ``writes``, phase 8 (``phase_hnsw_writes``) runs on the same
+    index before it is freed. Returns {"build_s", "qps", "recall", ...}."""
     from vectorsimilarity_tpu_torch import api, config, create_index
     from vectorsimilarity_tpu_torch import types as T
-    from vectorsimilarity_tpu_torch.core.store import _bucket_capacity
     from vectorsimilarity_tpu_torch.ops import graph_search as gs
     from vectorsimilarity_tpu_torch.utils.synthetic import embedding_like
 
@@ -874,20 +930,10 @@ def phase_hnsw(dev, smi, n=HNSW_N):
         print(f"# hnsw build dropped {out['dropped']} reverse edges (row cap)", flush=True)
 
     # Ground truth: the port's exact flat index on the same rows (K1).
-    bf = create_index(T.VecSimParams(algo=T.VecSimAlgo.BF, bfParams=T.BFParams(
-        type=T.VecSimType.FLOAT32, dim=DIM, metric=T.VecSimMetric.Cosine)))
-    cap = _bucket_capacity(n, bf.store.block_size)
-    padded = torch.zeros((cap, DIM), dtype=torch.float32, device=dev)
-    padded[:n] = data
-    bf.store.adopt_device({"data": padded}, count=n)
-    _, truth = bf.search_knn_device(queries, k)
-    truth = truth.cpu().numpy()
-    del padded, bf
+    truth = exact_labels(data, np.arange(n), queries, k)
 
     def recall(ids):
-        ids = ids[:, :k]
-        return float(np.mean([len(set(a.tolist()) & set(b.tolist())) / k
-                              for a, b in zip(ids, truth)]))
+        return label_recall(ids, truth)
 
     out["qps"], out["recall"], out["reads"], out["ms"] = {}, {}, {}, {}
     for ef in HNSW_EFS:
@@ -932,7 +978,260 @@ def phase_hnsw(dev, smi, n=HNSW_N):
     if out["recall"][200] < HNSW_MIN_RECALL or rec < HNSW_MIN_RECALL:
         raise AssertionError(f"HNSW recall@10 at ef=200 below {HNSW_MIN_RECALL}: "
                              f"{out['recall'][200]:.4f} (host API {rec:.4f})")
+    if writes:
+        out["writes"] = phase_hnsw_writes(idx, queries, smi)
     del idx, rows, data, queries
+    torch.cuda.empty_cache()
+    return out
+
+
+# Phase 8: the write path on phase 7's index (the reference's updated-index
+# workload, benchmarks/run_all.py BM_VecSimUpdatedIndex): eager deletes, an
+# insert batch that overwrites live labels (more than 8: the bulk branch),
+# tombstones removed by one bulk pass.
+WRITE_EAGER, WRITE_BATCH = 64, 1024
+
+
+def _new_rows(dev, n, seed):
+    """``n`` embedding-like rows on the smoke corpus's manifold (its
+    projection, another latent seed), on the card."""
+    from vectorsimilarity_tpu_torch.utils.synthetic import embedding_like
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    lat = torch.Generator(device=dev).manual_seed(seed)
+    return embedding_like(gen, n, DIM, latent_generator=lat)
+
+
+def _check_replies(replies, truth, gone, what, smi):
+    """recall@10 of the replies against ``truth`` (labels) at least
+    HNSW_MIN_RECALL, and no label of ``gone`` in any reply."""
+    got = reply_labels(replies, truth.shape[1])
+    rec = label_recall(got, truth)
+    back = set(np.unique(got).tolist()) & gone
+    print(f"# {what}: recall@10 {rec:.4f} by label against the exact flat index over the "
+          f"live rows, {len(back)} deleted labels in the replies; card {smi}", flush=True)
+    if back:
+        raise AssertionError(f"{what}: deleted labels answered: {sorted(back)[:8]}")
+    if rec < HNSW_MIN_RECALL:
+        raise AssertionError(f"{what}: recall@10 {rec:.4f} below {HNSW_MIN_RECALL}")
+    return rec
+
+
+def phase_hnsw_writes(idx, queries, smi):
+    """Phase 8 on phase 7's HNSW index (its vectors only on the card): 64
+    eager ``delete_vector`` calls, one ``add_vector_batch`` overwriting 1024
+    live labels, ``mark_delete`` of 1024 more and one
+    ``delete_tombstoned_bulk``, then ``topk_query_batch`` at B = 1024, k =
+    10, ef = 200. Checks recall@10 by label against the exact flat index
+    over the live rows, that no deleted label answers, and that each
+    overwritten label's new vector finds its label first at distance <=
+    1e-4. Prints ms per delete, the seconds of the overwrite and the bulk
+    pass, the rows it repaired, and the peak device memory."""
+    from vectorsimilarity_tpu_torch import types as T
+
+    k, dev, n = 10, idx.device, idx.store.count
+    labels = np.random.default_rng(SEED + 8).permutation(n)
+    eager = labels[:WRITE_EAGER]
+    over = labels[WRITE_EAGER : WRITE_EAGER + WRITE_BATCH]
+    tomb = labels[WRITE_EAGER + WRITE_BATCH : WRITE_EAGER + 2 * WRITE_BATCH]
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    times = []
+    for lab in eager:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if idx.delete_vector(int(lab)) != 1:
+            raise AssertionError(f"delete_vector({lab}) removed nothing")
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["delete_ms"] = statistics.median(times)
+    out["delete_ms_mean"] = statistics.fmean(times)
+    print(f"# hnsw writes: {WRITE_EAGER} eager delete_vector calls, {out['delete_ms']:.2f} ms per "
+          f"delete (median; mean {out['delete_ms_mean']:.2f}, first {times[0]:.2f}, which pulls "
+          f"the device-built links to the host once); card {smi}", flush=True)
+
+    new = _new_rows(dev, WRITE_BATCH, SEED + 8).cpu().numpy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh = idx.add_vector_batch(new, over.tolist())
+    torch.cuda.synchronize()
+    out["overwrite_s"] = time.perf_counter() - t0
+    if fresh != 0 or len(idx.labels) != n - WRITE_EAGER:
+        raise AssertionError(f"the overwrite batch added {fresh} labels")
+    print(f"# hnsw writes: add_vector_batch overwriting {WRITE_BATCH} live labels (tombstones, "
+          f"one bulk pass, then the insert): {out['overwrite_s']:.3f} s, "
+          f"{idx.last_bulk_repairs} rows repaired; card {smi}", flush=True)
+
+    ids = []
+    for lab in tomb:
+        ids += idx.mark_delete(int(lab))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    removed = idx.delete_tombstoned_bulk(ids)
+    torch.cuda.synchronize()
+    out["bulk_s"] = time.perf_counter() - t0
+    idx.num_marked_deleted -= removed  # the caller's, as the tiered GC does
+    out["bulk_repaired"] = idx.last_bulk_repairs
+    if removed != WRITE_BATCH or idx.store.count != n - WRITE_EAGER - WRITE_BATCH:
+        raise AssertionError(f"delete_tombstoned_bulk removed {removed}")
+    print(f"# hnsw writes: mark_delete of {WRITE_BATCH} labels, then delete_tombstoned_bulk: "
+          f"{out['bulk_s']:.3f} s, {out['bulk_repaired']} rows repaired of "
+          f"{idx.store.count} live; card {smi}", flush=True)
+
+    qp = T.VecSimQueryParams()
+    qp.hnswRuntimeParams.efRuntime = 200
+    host = np.asarray(queries.cpu())
+    t0 = time.perf_counter()
+    replies = idx.topk_query_batch(host, k, qp)
+    out["query_ms"] = (time.perf_counter() - t0) * 1e3
+    count = idx.store.count
+    truth = exact_labels(idx.store.device_arrays()["data"][:count],
+                         idx.store.host["label"][:count], queries, k)
+    gone = set(eager.tolist()) | set(tomb.tolist())
+    out["recall"] = _check_replies(replies, truth, gone, "hnsw writes: topk_query_batch "
+                                   f"B={BATCH} ef=200 ({out['query_ms']:.2f} ms)", smi)
+    mine = idx.topk_query_batch(new, 1, qp)
+    if any(len(r) != 1 or int(r.ids[0]) != int(lab) or not r.scores[0] <= 1e-4
+           for r, lab in zip(mine, over)):
+        raise AssertionError("an overwritten label's new vector does not find its label first")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"# hnsw writes: each of the {WRITE_BATCH} overwritten labels' new vectors finds its "
+          f"label at k=1 within 1e-4; peak device memory {out['peak_gib']:.2f} GiB; card {smi}",
+          flush=True)
+    return out
+
+
+# Phase 9: the tiered HNSW index (the deployment RediSearch runs) with the
+# job queue of benchmarks/concurrent_bench.py: a backend prebuilt by
+# bulk_build_device, a writer thread ingesting while the main thread
+# queries, then deletes up to the reference's swap-job threshold.
+TIERED_INGEST, TIERED_DELETES, TIERED_THREADS = 8192, 1024, 2
+
+
+def phase_tiered(dev, smi, n=HNSW_N):
+    """Phase 9: ``create_index(VecSimAlgo.TIERED)`` (primary 768-d fp32
+    Cosine, M = 16, efC = 200, swapJobThreshold 1024, a
+    ``JobQueueThreadPool(2)``), its backend prebuilt by ``bulk_build_device``
+    on ``n`` rows. A writer thread ingests 8192 new vectors by
+    ``add_vector`` while the main thread loops ``topk_query_batch`` (B =
+    1024, k = 10, ef = 200) until the job queue has migrated them all into
+    the backend; the group-min kernel K1 (the flat tier's engine) must
+    launch in that window. Then ``wait_for_quiescence(300)`` and 1024
+    deletes through the tiered index, the last of which reaches the
+    threshold and runs the GC. recall@10 by label against the exact flat
+    index over the live rows after the ingest and after the GC, and no
+    deleted label answers. Prints vectors/s and QPS over the window, the
+    migration batches, the GC seconds and the peak device memory."""
+    from vectorsimilarity_tpu_torch import create_index
+    from vectorsimilarity_tpu_torch import types as T
+    from vectorsimilarity_tpu_torch.ops.kernels.bf_topk import group_min_scores
+    from vectorsimilarity_tpu_torch.utils.synthetic import embedding_like
+    from vectorsimilarity_tpu_torch.utils.thread_pool import JobQueueThreadPool
+
+    k = 10
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = embedding_like(gen, n + BATCH, DIM)
+    data, queries = rows[:n], rows[n:]
+    new = _new_rows(dev, TIERED_INGEST, SEED + 9)
+    new_host = new.cpu().numpy()
+    host_q = queries.cpu().numpy()
+    out = {"n": n}
+    pool = JobQueueThreadPool(TIERED_THREADS)
+    try:
+        primary = T.VecSimParams(algo=T.VecSimAlgo.HNSWLIB, hnswParams=T.HNSWParams(
+            type=T.VecSimType.FLOAT32, dim=DIM, metric=T.VecSimMetric.Cosine, M=HNSW_M,
+            efConstruction=HNSW_EFC, efRuntime=200, initialCapacity=n))
+        tparams = T.TieredIndexParams(
+            primaryIndexParams=primary, jobQueue=pool, submitCb=pool.submit_cb,
+            tieredHnswParams=T.TieredHNSWParams(swapJobThreshold=1024))
+        idx = create_index(T.VecSimParams(algo=T.VecSimAlgo.TIERED, tieredParams=tparams))
+        if idx.device.type != "cuda" or idx.frontend.device != idx.device:
+            raise AssertionError(f"create_index put the tiered index on {idx.device}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx.backend.bulk_build_device(data, batch=1024, scan_batches=4)
+        torch.cuda.synchronize()
+        out["prebuild_s"] = time.perf_counter() - t0
+        print(f"# tiered: backend prebuilt by bulk_build_device, {n} x {DIM} fp32 Cosine "
+              f"M={HNSW_M} efC={HNSW_EFC}: {out['prebuild_s']:.1f} s; card {smi}", flush=True)
+        qp = T.VecSimQueryParams()
+        qp.hnswRuntimeParams.efRuntime = 200
+        idx.topk_query_batch(host_q, k, qp)  # warm-up
+
+        def writer():
+            for j in range(TIERED_INGEST):
+                idx.add_vector(new_host[j], n + j)
+
+        # The window runs from the writer's start until the job queue has
+        # migrated every ingested vector into the backend: add_vector only
+        # writes the flat tier and queues a job, so the migration sets the
+        # ingest rate.
+        group_min_scores.launches = group_min_scores.tc_launches = 0
+        w = threading.Thread(target=writer, name="tiered-writer")
+        batches = 0
+        t0 = time.perf_counter()
+        w.start()
+        while w.is_alive() or not pool.wait_for_quiescence(0):
+            idx.topk_query_batch(host_q, k, qp)
+            batches += 1
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError("the tiered ingest did not finish within 600 s")
+        window = time.perf_counter() - t0
+        w.join()
+        launches = (group_min_scores.tc_launches, group_min_scores.launches)
+        out.update(ingest_vps=TIERED_INGEST / window, qps=batches * BATCH / window,
+                   window_s=window, query_batches=batches, k1_launches=launches[0],
+                   migrations=idx.migrations)
+        print(f"# tiered: a writer thread ingested {TIERED_INGEST} vectors by add_vector (into "
+              f"the backend in {idx.migrations} migration batches of at most 256 rows, by "
+              f"{TIERED_THREADS} pool threads) while the main thread ran {batches} "
+              f"topk_query_batch calls (B={BATCH}, k={k}, ef=200), over the same "
+              f"{window:.2f} s: {out['ingest_vps']:.1f} vectors/s, {out['qps']:.1f} QPS; the "
+              f"flat tier's K1 launched {launches[0]} times on the tensor cores, {launches[1]} on "
+              f"the CUDA cores; card {smi}", flush=True)
+        if launches[0] == 0 or launches[1] != 0:
+            raise AssertionError("the tiered queries did not run the tensor-core K1 on the "
+                                 "flat tier")
+        if not pool.wait_for_quiescence(300):
+            raise AssertionError("the job queue did not drain within 300 s")
+        if idx.frontend.index_size or idx.backend.index_size != n + TIERED_INGEST:
+            raise AssertionError(f"after the drain: flat {idx.frontend.index_size}, "
+                                 f"backend {idx.backend.index_size}")
+
+        every = torch.cat([data, new])
+        labels = np.arange(n + TIERED_INGEST)
+        truth = exact_labels(every, labels, queries, k)
+        out["recall_ingest"] = _check_replies(idx.topk_query_batch(host_q, k, qp), truth, set(),
+                                              "tiered after the ingest", smi)
+
+        gone = np.random.default_rng(SEED + 9).choice(n + TIERED_INGEST, TIERED_DELETES,
+                                                      replace=False)
+        gc_s = None
+        for lab in gone:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if idx.delete_vector(int(lab)) != 1:
+                raise AssertionError(f"tiered delete_vector({lab}) removed nothing")
+            torch.cuda.synchronize()
+            if idx.backend.num_marked_deleted == 0:
+                gc_s = time.perf_counter() - t0
+        if gc_s is None or idx.backend.index_size != n + TIERED_INGEST - TIERED_DELETES:
+            raise AssertionError("the swap-job threshold did not run the GC")
+        out["gc_s"], out["gc_repaired"] = gc_s, idx.backend.last_bulk_repairs
+        print(f"# tiered: {TIERED_DELETES} delete_vector calls reached swapJobThreshold 1024; "
+              f"the GC (delete_tombstoned_bulk) took {gc_s:.3f} s, {out['gc_repaired']} rows "
+              f"repaired; card {smi}", flush=True)
+        live = np.setdiff1d(labels, gone)
+        truth = exact_labels(every[torch.from_numpy(live).to(dev)], live, queries, k)
+        out["recall_gc"] = _check_replies(idx.topk_query_batch(host_q, k, qp), truth,
+                                          set(gone.tolist()), "tiered after the GC", smi)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"# tiered peak device memory {out['peak_gib']:.2f} GiB; card {smi}", flush=True)
+    finally:
+        pool.shutdown()
+    del idx, rows, data, queries, new, every
     torch.cuda.empty_cache()
     return out
 
@@ -1001,9 +1300,22 @@ def main() -> int:
     # 6. The exact fallbacks.
     phase_fallbacks(dev)
 
-    # 7. HNSW, built and searched on the card.
+    # 7. HNSW, built and searched on the card; 8. its write path. A job of
+    # the tiered index runs on a pool thread: every exception a thread
+    # raises is recorded, and one fails the run.
+    thread_errors = []
+    threading.excepthook = lambda a: (thread_errors.append(a),
+                                      sys.__excepthook__(a.exc_type, a.exc_value,
+                                                         a.exc_traceback))
     hnsw = phase_hnsw(dev, smi)
     print("# hnsw json " + json.dumps(hnsw), flush=True)
+
+    # 9. The tiered HNSW index with its job queue.
+    tiered = phase_tiered(dev, smi)
+    print("# tiered json " + json.dumps(tiered), flush=True)
+    if thread_errors:
+        raise AssertionError(f"{len(thread_errors)} thread(s) raised: "
+                             f"{[repr(a.exc_value) for a in thread_errors]}")
 
     print(f"# all phases passed in {time.perf_counter() - t_start:.1f} s; card {smi}")
     print(smi)

@@ -7,8 +7,9 @@ JAX HNSW index (``torch_port_common.jax_hnsw_index``) carried across with
 params, top-k / range / batch iterator / distance entry points, hybrid
 queries in the ADHOC_BF and BATCHES policies with one predicate, the ad-hoc
 scoring context, the debug-info field iterator, the estimates, the default
-device, and the entry points of what is not ported yet, which raise
-``NotImplementedError``. The JAX answers are computed once per index, in the
+device, the tiered entry points on an index that is not tiered, and the
+entry points of what is not ported yet, which raise ``NotImplementedError``
+naming their ``ROADMAP.md`` item. The JAX answers are computed once per index, in the
 module fixtures.
 """
 
@@ -24,6 +25,7 @@ import vectorsimilarity_tpu_torch as tvs
 import vectorsimilarity_tpu_torch.api as tapi
 from torch_port_common import TOL, hnsw_params, jax_hnsw_index, unit_rows
 from vectorsimilarity_tpu.core.hybrid import hybrid_topk as jhybrid
+from vectorsimilarity_tpu_torch import config as tconfig
 from vectorsimilarity_tpu_torch.convert import hnsw_from_jax
 from vectorsimilarity_tpu_torch.core.hybrid import hybrid_topk as thybrid
 
@@ -213,25 +215,50 @@ def test_element_neighbors_and_estimates(hnsw, bf):
     assert tapi.VecSim_GetSharedMemory() == 0
 
 
+def _tiered_svs_params():
+    primary = tvs.VecSimParams(algo=tvs.VecSimAlgo.SVS, svsParams=tvs.types.SVSParams(dim=8))
+    return tvs.VecSimParams(algo=tvs.VecSimAlgo.TIERED,
+                            tieredParams=tvs.types.TieredIndexParams(primaryIndexParams=primary))
+
+
+def _host_build(idx):
+    saved, tconfig.graph_build_device = tconfig.graph_build_device, False
+    try:
+        idx.add_vector(np.zeros(16, np.float32), 10**6)
+    finally:
+        tconfig.graph_build_device = saved
+
+
 @pytest.mark.parametrize("call", [
-    lambda idx: tapi.VecSimTieredIndex_GC(idx),
-    lambda idx: tapi.VecSimTieredIndex_AcquireSharedLocks(idx),
-    lambda idx: tapi.VecSimTieredIndex_ReleaseSharedLocks(idx),
     lambda idx: tapi.VecSim_UpdateThreadPoolSize(2),
     lambda idx: tapi.VecSimIndex_New(tvs.VecSimParams(
         algo=tvs.VecSimAlgo.SVS, svsParams=tvs.types.SVSParams(dim=8)), device="cpu"),
-    lambda idx: tapi.VecSimIndex_New(tvs.VecSimParams(
-        algo=tvs.VecSimAlgo.TIERED, tieredParams=tvs.types.TieredIndexParams()), device="cpu"),
+    lambda idx: tapi.VecSimIndex_New(_tiered_svs_params(), device="cpu"),
     lambda idx: tapi.VecSimIndex_EstimateElementSize(tvs.VecSimParams(
         algo=tvs.VecSimAlgo.SVS, svsParams=tvs.types.SVSParams(dim=8))),
-    lambda idx: idx.delete_vector(0),
-    lambda idx: idx.add_vector(np.zeros(16, np.float32), 0),
-], ids=["tiered_gc", "tiered_lock", "tiered_unlock", "pool_size", "svs", "tiered",
-        "svs_estimate", "hnsw_delete", "hnsw_overwrite"])
+    lambda idx: tapi.VecSimIndex_EstimateInitialSize(_tiered_svs_params()),
+    _host_build,
+], ids=["pool_size", "svs", "tiered_svs", "svs_estimate", "tiered_svs_estimate", "host_build"])
 def test_not_ported_entry_points_raise(call, hnsw):
     _, _, _, tidx = hnsw
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item"):
         call(tidx)
+
+
+def test_tiered_entry_points_work_on_any_index(hnsw):
+    """The three tiered entry points: the GC does nothing on an index that is
+    not tiered, and the shared locks are the index's own."""
+    _, _, _, tidx = hnsw
+    tapi.VecSimTieredIndex_GC(tidx)
+    tapi.VecSimTieredIndex_AcquireSharedLocks(tidx)
+    try:
+        assert tidx._lock._is_owned()
+    finally:
+        tapi.VecSimTieredIndex_ReleaseSharedLocks(tidx)
+    assert not tidx._lock._is_owned()
+    with pytest.raises(ValueError, match="primaryIndexParams"):
+        tapi.VecSimIndex_New(tvs.VecSimParams(
+            algo=tvs.VecSimAlgo.TIERED, tieredParams=tvs.types.TieredIndexParams()), device="cpu")
 
 
 def test_default_device_is_the_card():

@@ -180,9 +180,12 @@ def test_convert_carries_a_jax_index_with_deletes(multi, small_tiles):
 
 
 def test_unported_algorithms_raise():
-    for algo in (tt.VecSimAlgo.SVS, tt.VecSimAlgo.TIERED):
+    svs = tt.VecSimParams(algo=tt.VecSimAlgo.SVS)
+    tiered_svs = tt.VecSimParams(algo=tt.VecSimAlgo.TIERED,
+                                 tieredParams=tt.TieredIndexParams(primaryIndexParams=svs))
+    for params in (svs, tiered_svs):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcreate(tt.VecSimParams(algo=algo))
+            tcreate(params)
 
 
 def _plain(x):

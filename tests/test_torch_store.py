@@ -194,3 +194,42 @@ def test_mark_host_stale_pulls_device_writes():
     store.mark_host_stale("data")
     _assert_host(store, model)
     _assert_device(store, model)
+
+
+@pytest.mark.parametrize("adopt", [False, True])
+def test_add_field_joins_moves_and_sync(adopt):
+    # A field added after construction (the tiered frontend's op ids) starts
+    # host-authoritative at its fill, re-uploads every field at the next
+    # sync without losing device-authoritative rows, and then moves with
+    # swap-with-last like any other field.
+    rng = np.random.default_rng(6)
+    if adopt:
+        store, model = _adopted(rng, 40)
+        store.swap_delete(7)  # a deferred move pending on the adopted fields
+        model.swap_delete(7)
+    else:
+        store, model = BlockStore(_fields(), BLOCK), Model()
+        rows = _rows(rng, 40, 0)
+        store.append(rows)
+        model.append(rows)
+        _assert_device(store, model)
+    store.add_field("opid", FieldSpec((), np.int64, fill=-1))
+    with pytest.raises(ValueError, match="exists"):
+        store.add_field("opid", FieldSpec((), np.int64))
+    model.rows["opid"] = np.full(model.count, -1, np.int64)
+    assert not store._pending_moves["opid"] and "opid" not in store._host_stale
+    _assert_device(store, model)
+    store.host["opid"][: model.count] = np.arange(model.count) + 500
+    for i in range(model.count):
+        store.mark_dirty(i, "opid")
+    model.rows["opid"] = np.arange(model.count, dtype=np.int64) + 500
+    rows = _rows(rng, 3, 900)
+    rows["opid"] = np.array([7, 8, 9], np.int64)
+    store.append(rows)
+    model.append(rows)
+    for idx in (0, 11, -1, 4):
+        idx %= model.count  # -1: the last row, which moves nothing
+        store.swap_delete(idx)
+        model.swap_delete(idx)
+    _assert_device(store, model)
+    _assert_host(store, model)

@@ -7,8 +7,10 @@ Cosine. fp32, bf16, fp16, int8 and uint8 stores answer k-NN through three
 hand-written kernels (``csrc/``: group-min for k <= 32, fused top-k for k <=
 128, per-tile top-c for k <= 2048), fp64 stores through the exact streaming
 scan. The HNSW index, built and searched on the device (``ops/graph_build.py``,
-``ops/graph_search.py``): inserts of fresh labels, bulk builds, tombstones,
-k-NN, range queries and batch iterators. The query surface of both:
+``ops/graph_search.py``): inserts, bulk builds, overwrites, deletes with
+graph repair, tombstones and their bulk removal, k-NN, range queries and
+batch iterators. The tiered HNSW index (a flat frontend and an HNSW backend
+with a job queue, ``utils/thread_pool.py``). The query surface of all:
 ``api`` (the C API's entry points), ``query_params``, hybrid (filtered)
 queries and the ad-hoc scoring context. Stores live on the current CUDA
 device unless the caller passes ``device="cpu"``. The package imports torch
@@ -20,6 +22,8 @@ from .types import (  # noqa: F401
     BFParams,
     HNSWParams,
     QueryReplyOrder,
+    TieredHNSWParams,
+    TieredIndexParams,
     VecSearchMode,
     VecSimAlgo,
     VecSimIndexBasicInfo,
@@ -31,6 +35,7 @@ from .types import (  # noqa: F401
     VecSimQueryReplyCode,
     VecSimResolveCode,
     VecSimType,
+    VecSimWriteMode,
     VecsimQueryType,
 )
 from .core.interface import VecSimIndexBase  # noqa: F401

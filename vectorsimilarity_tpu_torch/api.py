@@ -2,10 +2,10 @@
 
 Counterpart of ``vectorsimilarity_tpu/api.py``. Every ``extern "C"`` entry
 point in ``src/VecSim/vec_sim.h:28-331`` has a function here with the same
-name and contract, for the flat and HNSW indexes. ``VecSimIndex_New`` puts
-the index on the current CUDA device unless ``device`` names another. The
-tiered entry points and ``VecSim_UpdateThreadPoolSize`` (which sizes the SVS
-pool) raise ``NotImplementedError`` until their slices of the port land. The
+name and contract, for the flat, HNSW and tiered HNSW indexes.
+``VecSimIndex_New`` puts the index on the current CUDA device unless
+``device`` names another. ``VecSim_UpdateThreadPoolSize`` (which sizes the
+SVS pool) raises ``NotImplementedError`` until the SVS slice lands. The
 object-oriented surface (``VecSimIndexBase`` methods) remains the idiomatic
 way to use the library.
 """
@@ -20,7 +20,6 @@ from .core.adhoc import AdhocBfCtx
 from .core.interface import VecSimIndexBase
 from .core.results import QueryReply
 from .indexes.factory import (
-    NOT_PORTED,
     create_index,
     estimate_element_size,
     estimate_initial_size,
@@ -29,7 +28,6 @@ from .ops.normalize import normalize_blob
 from .query_params import resolve_params
 from .types import (
     QueryReplyOrder,
-    VecSimAlgo,
     VecSimMetric,
     VecSimParams,
     VecSimQueryParams,
@@ -160,19 +158,17 @@ def VecSimIndex_AdhocBfCtx_Free(ctx) -> None:
     del ctx
 
 
-_TIERED = NOT_PORTED[VecSimAlgo.TIERED]
-
-
 def VecSimTieredIndex_GC(index) -> None:
-    raise NotImplementedError(_TIERED)
+    if index.basic_info().isTiered:
+        index.run_gc()
 
 
 def VecSimTieredIndex_AcquireSharedLocks(index) -> None:
-    raise NotImplementedError(_TIERED)
+    index.acquire_shared_locks()
 
 
 def VecSimTieredIndex_ReleaseSharedLocks(index) -> None:
-    raise NotImplementedError(_TIERED)
+    index.release_shared_locks()
 
 
 def VecSim_Normalize(blob: np.ndarray, dim: int, vtype: VecSimType) -> np.ndarray:
@@ -214,7 +210,7 @@ def VecSim_SetMemoryFunctions(funcs) -> None:
 def VecSim_UpdateThreadPoolSize(new_size: int) -> None:
     """vec_sim.cpp:38-48 flips the write mode and resizes the shared SVS
     thread pool, which is not ported yet."""
-    raise NotImplementedError("the SVS thread pool is not ported yet (ROADMAP.md queue 1)")
+    raise NotImplementedError("the SVS thread pool is not ported yet (ROADMAP.md queue 1, item 3)")
 
 
 def VecSimDebug_GetElementNeighborsInHNSWGraph(index, label: int):

@@ -125,12 +125,17 @@ def bigk_enabled(kind: str, k: int, capacity: int, dtype) -> bool:
 
 # Connect each insert batch on the device (``graph_build.connect_batch``).
 # The host-orchestrated construction of the JAX package is not ported yet:
-# ``False`` raises.
+# ``False`` raises (ROADMAP.md queue 1, item 4).
 graph_build_device: bool = True
 build_batch: int = 1024  # max rows per connect_batch call (a power of two)
 build_scan_batches: int = 4  # batches per ``build_scan`` call of a bulk build
 build_reverse_cap: int = 16  # new back-edges joining one row's re-prune
 build_beam_expand: int = 4  # candidates popped per construction-beam iteration
+# Max rows one tiered insert-job execution migrates into the backend (the
+# JAX package's value): each migration batch holds the backend lock for one
+# connect call, so queries wait behind at most one short batch, and the rest
+# of the queue coalesces into the next.
+tiered_migrate_batch: int = 256
 # bf16 navigation shadow of fp32 stores for construction beams: candidate
 # RANKING gathers half the bytes; the diversity prune recomputes its anchor
 # leg in fp32, so keep/discard compares stay fp32.

@@ -18,6 +18,14 @@ graph, and ``hnsw_from_jax(index, device=...)`` chains the two: a JAX
 An HNSW index of this package can be carried from one device to another the
 same way.
 
+``export_tiered_state`` does the same for a tiered HNSW index of either
+package: the frontend as flat state (with its ``opid`` column where the
+index is multi-value), the backend as HNSW state, and the tiered counters.
+It raises while insert jobs are pending or mid-migration: their vectors are
+in neither tier's final place. ``tiered_from_state`` builds this package's
+``TieredHNSWIndex`` (with no job queue: its jobs run inline), and
+``tiered_from_jax`` chains the two.
+
 Nothing here imports jax: a caller holding a JAX index hands it over, and
 only numpy comes back out of it.
 """
@@ -30,7 +38,17 @@ import numpy as np
 
 from .indexes.brute_force import BruteForceIndex
 from .indexes.hnsw import HNSWIndex
-from .types import BFParams, HNSWParams, VecSimMetric, VecSimType
+from .indexes.tiered import TieredHNSWIndex
+from .types import (
+    BFParams,
+    HNSWParams,
+    TieredHNSWParams,
+    TieredIndexParams,
+    VecSimAlgo,
+    VecSimMetric,
+    VecSimParams,
+    VecSimType,
+)
 
 
 def _label_state(labels) -> dict:
@@ -130,12 +148,8 @@ def export_hnsw_state(index) -> dict:
     }
 
 
-def hnsw_from_state(state: dict, *, device=None) -> HNSWIndex:
-    """This package's ``HNSWIndex`` on ``device`` (the current CUDA device by
-    default, the CPU only on request) holding the exported graph, rows, ids,
-    labels, entry point and level sampler."""
-    p = state["params"]
-    params = HNSWParams(
+def _hnsw_params(p: dict) -> HNSWParams:
+    return HNSWParams(
         type=VecSimType(p["type"]),
         dim=int(p["dim"]),
         metric=VecSimMetric(p["metric"]),
@@ -147,7 +161,13 @@ def hnsw_from_state(state: dict, *, device=None) -> HNSWIndex:
         efRuntime=int(p["efRuntime"]),
         epsilon=float(p["epsilon"]),
     )
-    index = HNSWIndex(params, device=device)
+
+
+def hnsw_from_state(state: dict, *, device=None) -> HNSWIndex:
+    """This package's ``HNSWIndex`` on ``device`` (the current CUDA device by
+    default, the CPU only on request) holding the exported graph, rows, ids,
+    labels, entry point and level sampler."""
+    index = HNSWIndex(_hnsw_params(state["params"]), device=device)
     index.lmax = state["lmax"]
     index.upper = index._new_upper_store(index.lmax)
     _fill_store(index.store, state)
@@ -163,3 +183,48 @@ def hnsw_from_state(state: dict, *, device=None) -> HNSWIndex:
 def hnsw_from_jax(index, *, device=None) -> HNSWIndex:
     """A JAX package ``HNSWIndex`` carried across to this package's."""
     return hnsw_from_state(export_hnsw_state(index), device=device)
+
+
+def export_tiered_state(index) -> dict:
+    """State of a tiered HNSW index of either package (see the module
+    docstring); plain Python and numpy values only. Raises ``ValueError``
+    while insert jobs are pending."""
+    with index._glock:
+        if index._insert_jobs or index._inflight:
+            raise ValueError("insert jobs are pending: wait for the job queue to drain first")
+        return {
+            "flat_buffer_limit": int(index.flat_buffer_limit),
+            "swap_job_threshold": int(index.swap_job_threshold),
+            "pending_swaps": int(index._pending_swaps),
+            "direct_hnsw_insertions": int(index.direct_hnsw_insertions),
+            "op_counter": int(index._op_counter),
+            "frontend": export_state(index.frontend),
+            "backend": export_hnsw_state(index.backend),
+        }
+
+
+def tiered_from_state(state: dict, *, device=None) -> TieredHNSWIndex:
+    """This package's ``TieredHNSWIndex`` on ``device`` (the current CUDA
+    device by default, the CPU only on request) holding the exported tiers,
+    with no job queue (jobs run inline)."""
+    params = TieredIndexParams(
+        primaryIndexParams=VecSimParams(
+            algo=VecSimAlgo.HNSWLIB, hnswParams=_hnsw_params(state["backend"]["params"])
+        ),
+        flatBufferLimit=state["flat_buffer_limit"],
+        tieredHnswParams=TieredHNSWParams(swapJobThreshold=state["swap_job_threshold"]),
+    )
+    index = TieredHNSWIndex(params, device=device)
+    index.backend = hnsw_from_state(state["backend"], device=index.device)
+    _fill_store(index.frontend.store, state["frontend"])
+    _fill_labels(index.frontend, state["frontend"]["labels"])
+    index._pending_swaps = state["pending_swaps"]
+    index.direct_hnsw_insertions = state["direct_hnsw_insertions"]
+    index._op_counter = state["op_counter"]
+    return index
+
+
+def tiered_from_jax(index, *, device=None) -> TieredHNSWIndex:
+    """A JAX package ``TieredHNSWIndex`` carried across to this package's;
+    raises while its insert jobs are pending."""
+    return tiered_from_state(export_tiered_state(index), device=device)

@@ -98,7 +98,48 @@ class MultiLabelMap:
         self._free_slots.append(slot)
         return sorted(ids, reverse=True)  # delete from the back first
 
+    def remove_id(self, label: int, idx: int) -> None:
+        """Drop one id of ``label``; the label (and its slot) goes with its
+        last id."""
+        ids = self.label_to_ids[label]
+        ids.discard(idx)
+        if not ids:
+            del self.label_to_ids[label]
+            slot = self.label_to_slot.pop(label)
+            del self._slot_to_label[slot]
+            self._free_slots.append(slot)
+
     def on_swap(self, label: int, moved_from: int, moved_to: int) -> None:
         ids = self.label_to_ids[label]
         ids.discard(moved_from)
         ids.add(moved_to)
+
+
+def rebuild_labels(index) -> None:
+    """Refill ``index.labels`` (a fresh map) from the store's host columns:
+    ``label``, ``slot`` for a multi-value index, and ``flags`` where the
+    index keeps tombstones (a tombstoned row has no label entry). The JAX
+    package keeps this in ``utils/serializer.py`` (``_rebuild_labels``); the
+    port's bulk tombstone removal needs it before the serializer is ported."""
+    count = index.store.count
+    labels = index.store.host["label"][:count]
+    flags = index.store.host.get("flags")
+    live = range(count) if flags is None else (i for i in range(count) if not flags[i] & 1)
+    if not index.multi:
+        for i in live:
+            index.labels.label_to_id[int(labels[i])] = i
+        return
+    m = index.labels
+    slots = index.store.host["slot"][:count]
+    for i in live:
+        lab, slot = int(labels[i]), int(slots[i])
+        if lab in m.label_to_ids:
+            m.label_to_ids[lab].add(i)
+        else:
+            m.label_to_ids[lab] = {i}
+            m.label_to_slot[lab] = slot
+            m._slot_to_label[slot] = lab
+    if m._slot_to_label:
+        m._next_slot = max(m._slot_to_label) + 1
+    used = set(m._slot_to_label)
+    m._free_slots = [s for s in range(m._next_slot) if s not in used]

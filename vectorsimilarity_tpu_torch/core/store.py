@@ -113,6 +113,23 @@ class BlockStore:
         if need > self.capacity:
             self._resize(_bucket_capacity(need, self.block_size))
 
+    def add_field(self, name: str, spec: FieldSpec) -> None:
+        """Register an extra SoA field after construction (the tiered
+        frontend's per-row op-id column). Swap-with-last deletion and device
+        sync treat it like a constructor-time field. The new field starts
+        host-authoritative with no pending moves, and the next sync
+        re-uploads every field: device-authoritative fields reach the host
+        first, as on growth, so the re-upload carries their content."""
+        if name in self.fields:
+            raise ValueError(f"field {name!r} exists")
+        if self._host_stale and self._device:
+            self.pull_host()
+        self.fields[name] = spec
+        self.host[name] = np.full((self.capacity, *spec.shape), spec.fill, dtype=spec.dtype)
+        self._dirty_rows[name] = set()
+        self._pending_moves[name] = {}
+        self._device_capacity = -1
+
     def maybe_shrink(self) -> None:
         """Shrink capacity when count has dropped far below the bucket."""
         target = _bucket_capacity(max(self.count, 1), self.block_size)

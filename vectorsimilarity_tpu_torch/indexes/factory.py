@@ -1,9 +1,9 @@
 """Index factories — params to concrete index.
 
 Counterpart of ``vectorsimilarity_tpu/indexes/factory.py`` (reference:
-``index_factories/index_factory.cpp:17-73``). The flat and HNSW indexes are
-ported; the other algorithms raise until their slice of the port lands
-(ROADMAP.md, queue 1).
+``index_factories/index_factory.cpp:17-73``). The flat, HNSW and tiered HNSW
+indexes are ported; SVS and the tiered SVS index raise until their slice of
+the port lands (ROADMAP.md queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -24,8 +24,7 @@ from ..types import (
 )
 
 NOT_PORTED = {
-    VecSimAlgo.TIERED: "the tiered index is not ported yet (ROADMAP.md queue 1)",
-    VecSimAlgo.SVS: "SVS-Vamana is not ported yet (ROADMAP.md queue 1)",
+    VecSimAlgo.SVS: "SVS-Vamana is not ported yet (ROADMAP.md queue 1, item 3)",
 }
 
 
@@ -59,6 +58,10 @@ def create_index(params: VecSimParams, *, device=None):
 
         return HNSWIndex(_with_defaults_hnsw(params.hnswParams), params.logCtx,
                          device=device)
+    if algo == VecSimAlgo.TIERED:
+        from .tiered import create_tiered_index
+
+        return create_tiered_index(params.tieredParams, params.logCtx, device=device)
     raise NotImplementedError(NOT_PORTED[algo])
 
 
@@ -69,8 +72,11 @@ def _check_ported(algo: VecSimAlgo) -> None:
 
 def estimate_initial_size(params: VecSimParams) -> int:
     """Rough initial memory footprint (``EstimateInitialSize`` parity)."""
-    _check_ported(VecSimAlgo(params.algo))
+    algo = VecSimAlgo(params.algo)
+    _check_ported(algo)
     p = params.algo_params
+    if algo == VecSimAlgo.TIERED:
+        return estimate_initial_size(p.primaryIndexParams) + 4096
     block = p.blockSize or DEFAULT_BLOCK_SIZE
     return block * (p.dim * numpy_dtype(p.type).itemsize + 16)
 
@@ -80,6 +86,8 @@ def estimate_element_size(params: VecSimParams) -> int:
     algo = VecSimAlgo(params.algo)
     _check_ported(algo)
     p = params.algo_params
+    if algo == VecSimAlgo.TIERED:
+        return estimate_element_size(p.primaryIndexParams)
     base = p.dim * numpy_dtype(p.type).itemsize + 8 + 4
     if algo == VecSimAlgo.HNSWLIB:
         M = getattr(p, "M", 0) or HNSW_DEFAULT_M

@@ -16,11 +16,18 @@ Queries run on the device: greedy descent over the upper levels
 (``ops/graph_build.py``); the host keeps the label maps, level sampling and
 the entry point.
 
-Not ported yet (the next HNSW slice, ROADMAP.md queue 1): true deletes and
-their graph repair (``delete_vector``, ``delete_tombstoned_bulk``),
-overwrite of a live label, which goes through that repair, and the
-host-orchestrated construction (``config.graph_build_device = False``); each
-raises ``NotImplementedError``. ``mark_delete`` (a tombstone) is ported.
+Deletion keeps the reference's in-place semantics (hnsw.h:946-1184):
+referrers are repaired by re-pruning over (their links + the deleted node's
+links) on the device, then the row is removed with swap-with-last and its
+id rewritten in the graph. Referrers are found by scans of the host link
+arrays (``native_bridge.find_referrers``). Many tombstones go in one bulk
+pass (``delete_tombstoned_bulk``: one sweep, one grouped re-prune, and a
+compaction of both stores on the device). Overwriting a live label deletes
+its old row first.
+
+Not ported yet: the host-orchestrated construction
+(``config.graph_build_device = False``) raises ``NotImplementedError``
+(ROADMAP.md queue 1, item 4).
 """
 
 from __future__ import annotations
@@ -32,12 +39,21 @@ import numpy as np
 import torch
 
 from .. import config
+from .. import native_bridge
 from ..core.abstract_index import DeviceVectorIndex, pow2_bucket
 from ..core.interface import TimeoutBudget
+from ..core.labels import rebuild_labels
 from ..core.results import QueryReply, filter_results_by_id, make_reply
 from ..core.store import BlockStore, FieldSpec, _bucket_capacity
 from ..ops import graph_build
-from ..ops.graph_search import StoreCtx, beam_search, dists_to_ids, exact_rerank, greedy_level
+from ..ops.graph_search import (
+    StoreCtx,
+    beam_search,
+    dists_to_ids,
+    diversity_prune_chunked,
+    exact_rerank,
+    greedy_level,
+)
 from ..types import (
     INVALID_LABEL,
     CommonInfo,
@@ -57,7 +73,32 @@ FLAG_DELETED = 1
 
 _INITIAL_LMAX = 4
 
-NEXT_SLICE = "not ported yet: it waits for the next HNSW slice of the port (ROADMAP.md queue 1)"
+HOST_BUILD = ("host-orchestrated HNSW construction (config.graph_build_device = False) is not "
+              "ported yet (ROADMAP.md queue 1, item 4: persistence and the host build)")
+
+# At most this many overwritten labels of one insert batch are deleted one
+# by one; more are tombstoned and removed by one bulk pass.
+_EAGER_OVERWRITES = 8
+
+
+def _remap(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` where ids >= 0, -1 elsewhere."""
+    return torch.where(ids >= 0, table[ids.clamp_min(0).long()], -1)
+
+
+def _compact_stores(dev: dict, udev: dict, idx, uidx, perm, uperm):
+    """Gather the live rows of both stores and remap their link ids: one
+    ``index_select`` per field and one table lookup per id field, on the
+    device. ``idx`` / ``uidx`` are full-capacity gather indices (live rows
+    first), ``perm`` / ``uperm`` map old vector ids / upper rows to new ones
+    (-1: gone). Returns the new field tensors."""
+    out = {name: arr.index_select(0, idx) for name, arr in dev.items()}
+    out["links0"] = _remap(out["links0"], perm)
+    out["upper_row"] = _remap(out["upper_row"], uperm)
+    uout = {name: arr.index_select(0, uidx) for name, arr in udev.items()}
+    uout["links"] = _remap(uout["links"], perm)
+    uout["vec"] = _remap(uout["vec"], perm)
+    return out, uout
 
 
 class HNSWIndex(DeviceVectorIndex):
@@ -101,6 +142,7 @@ class HNSWIndex(DeviceVectorIndex):
         self._host_links_stale = False
         self._build_dropped: list = []
         self._nav_cache = None
+        self.last_bulk_repairs = 0  # rows re-pruned by the last bulk removal
 
     # ------------------------------------------------------------------
     # Upper-level side store
@@ -267,14 +309,27 @@ class HNSWIndex(DeviceVectorIndex):
     def add_vector_batch(self, vecs: np.ndarray, labels) -> int:
         """Batched insert: the batch shares the device candidate searches,
         and intra-batch edges come from batch-pairwise distances merged into
-        the candidate lists. Fresh labels only (or any label of a multi-value
-        index): overwriting a live label raises ``NotImplementedError``."""
+        the candidate lists. A live label of a single-value index is
+        overwritten: up to 8 such labels are deleted one by one, more are
+        tombstoned and removed by one bulk repair and compaction pass.
+        Returns the number of new labels (single-value) or rows (multi)."""
         labels = [int(l) for l in labels]
         with self._lock:
             if not config.graph_build_device:
-                raise NotImplementedError(f"host-orchestrated HNSW construction is {NEXT_SLICE}")
-            if not self.multi and any(l in self.labels for l in labels):
-                raise NotImplementedError(f"overwriting a live HNSW label is {NEXT_SLICE}")
+                raise NotImplementedError(HOST_BUILD)
+            overwrite: list[int] = []
+            if not self.multi:
+                overwrite = [l for l in labels if l in self.labels]
+                if len(overwrite) > _EAGER_OVERWRITES:
+                    old_ids: list[int] = []
+                    for l in overwrite:
+                        old_ids.extend(self.mark_delete(l))
+                    self._delete_tombstoned_bulk_locked(old_ids)
+                    self.num_marked_deleted -= len(old_ids)
+                    self.store.maybe_shrink()
+                else:
+                    for l in overwrite:
+                        self.delete_vector(l)
             rows = self.preprocess_storage(vecs)
             n = len(labels)
             rows["label"] = np.asarray(labels, dtype=np.int64)
@@ -297,7 +352,7 @@ class HNSWIndex(DeviceVectorIndex):
                 if levels[i] >= 1:
                     self._alloc_upper_row(node)
             self._connect_batch_device(np.asarray(ids, dtype=np.int32), levels)
-            return n
+            return n - len(overwrite)
 
     def _connect_batch_device(self, ids: np.ndarray, levels: np.ndarray) -> None:
         """Connect a batch on the device, in power-of-two chunks of at most
@@ -472,14 +527,263 @@ class HNSWIndex(DeviceVectorIndex):
                 )
 
     # ------------------------------------------------------------------
-    # Deletes: tombstones only in this slice
+    # Delete path (in place: repair + swap, hnsw.h:946-1184)
     # ------------------------------------------------------------------
 
-    def delete_vector(self, label: int) -> int:
-        raise NotImplementedError(f"deleting from an HNSW index is {NEXT_SLICE}")
+    def _reprune_rows(self, rows: list[tuple[int, int, list[int]]]) -> None:
+        """Heuristic re-prune of (node, level, candidates) rows on the
+        device, level 0 and the upper levels in one call each; the chosen
+        links are written on the host. The JAX package pads the rows to a
+        power of two for its compile cache; rows are independent, so the
+        port runs them as they are (the candidate width keeps its padding)."""
+        dev, _, ctx = self._device_ctx()
+        for lvl_zero in (True, False):
+            group = [r for r in rows if (r[1] == 0) == lvl_zero]
+            if not group:
+                continue
+            m = self.M0 if lvl_zero else self.M
+            C = pow2_bucket(max(len(c) for _, _, c in group))
+            cand = np.full((len(group), C), -1, dtype=np.int32)
+            for bi, (_, _, c) in enumerate(group):
+                cand[bi, : len(c)] = c
+            nodes = torch.tensor([g[0] for g in group], dtype=torch.int64, device=self.device)
+            q = dev["data"].index_select(0, nodes)
+            qn = None if ctx.norm is None else ctx.norm.index_select(0, nodes)
+            # Chunked: at bulk-GC scale the repair set is O(tombstones * M)
+            # rows, and one [rows, C, D] gather of their candidates is GBs.
+            sel = diversity_prune_chunked(
+                q, torch.from_numpy(cand).to(self.device), None, ctx, m=m,
+                metric=self.metric, kind=self.store_kind, q_norm=qn,
+            ).cpu().numpy()
+            for bi, (node, lvl, _) in enumerate(group):
+                self.set_links(node, lvl, [int(x) for x in sel[bi] if x >= 0])
 
-    def delete_tombstoned_bulk(self, ids=None) -> int:
-        raise NotImplementedError(f"removing tombstoned HNSW nodes is {NEXT_SLICE}")
+    def delete_vector(self, label: int) -> int:
+        with self._lock:
+            ids = self.labels.remove_label(label)
+            if not ids:
+                return 0
+            for node in sorted(ids, reverse=True):
+                self._delete_node(node)
+            self.store.maybe_shrink()
+            return len(ids)
+
+    def _referrers(self, node: int) -> list[tuple[int, int]]:
+        """All (referrer, level) with an edge -> node: native scans of the
+        host link arrays, level 0 first, rows ascending."""
+        self._ensure_host_links()
+        out = [(int(h), 0) for h in
+               native_bridge.find_referrers(self.store.host["links0"], self.store.count, node)]
+        ucount = self.upper.count
+        if ucount:
+            ul = self.upper.host["links"][:ucount]
+            vec = self.upper.host["vec"]
+            hit = native_bridge.find_referrers(
+                ul.reshape(ucount * self.lmax, self.M), ucount * self.lmax, node
+            )
+            out.extend((int(vec[fr // self.lmax]), int(fr % self.lmax) + 1) for fr in hit)
+        return out
+
+    def _delete_node(self, node: int) -> None:
+        node_lvl = self.node_level(node)
+        # Repair each referrer: re-prune over (its links + node's links).
+        repairs: list[tuple[int, int, list[int]]] = []
+        for ref, lvl in self._referrers(node):
+            if ref == node:
+                continue
+            own = [x for x in self.get_links(ref, lvl) if x != node]
+            borrowed = (
+                [x for x in self.get_links(node, lvl) if x != ref and x != node]
+                if lvl <= node_lvl
+                else []
+            )
+            cand = list(dict.fromkeys(own + borrowed))
+            cap_l = self.M0 if lvl == 0 else self.M
+            if len(cand) <= cap_l and not borrowed:
+                self.set_links(ref, lvl, cand)
+            else:
+                repairs.append((ref, lvl, cand))
+        if repairs:
+            self._reprune_rows(repairs)
+        # Entry point replacement (hnsw.h:1045-1120 semantics).
+        if self.entry_id == node:
+            self._replace_entry_point(exclude=node)
+        self._remove_upper_row(node)
+        self._swap_remove(node)
+
+    def _remove_upper_row(self, node: int) -> None:
+        r = int(self.store.host["upper_row"][node])
+        if r < 0:
+            return
+        last = self.upper.count - 1
+        moved_vec = int(self.upper.host["vec"][last])
+        self.upper.swap_delete(r)
+        if r != last:
+            self.store.host["upper_row"][moved_vec] = r
+            self.store.mark_dirty(moved_vec, "upper_row")
+        self.store.host["upper_row"][node] = -1
+        self.store.mark_dirty(node, "upper_row")
+
+    def _swap_remove(self, node: int) -> None:
+        last = self.store.count - 1
+        if node != last:
+            # Rewrite references to `last` -> `node` before moving the row.
+            for ref, lvl in self._referrers(last):
+                links = [node if x == last else x for x in self.get_links(ref, lvl)]
+                self.set_links(ref if ref != last else node, lvl, links)
+            r = int(self.store.host["upper_row"][last])
+            if r >= 0:
+                self.upper.host["vec"][r] = node
+                self.upper.mark_dirty(r, "vec")
+            moved_label = int(self.store.host["label"][last])
+            # Tombstoned rows are no longer in the label map (mark_delete
+            # removed them); only a live row's move is recorded.
+            if self.multi:
+                if last in self.labels.label_to_ids.get(moved_label, ()):
+                    self.labels.on_swap(moved_label, last, node)
+            elif self.labels.label_to_id.get(moved_label) == last:
+                self.labels.on_swap(moved_label, node)
+            if self.entry_id == last:
+                self.entry_id = node
+        self.store.swap_delete(node)
+
+    def _delete_node_tombstoned(self, node: int) -> None:
+        """Remove one tombstoned node (its label entry is gone already):
+        repair and swap, as ``_delete_node`` (hnsw.h:1694)."""
+        self.store.host["flags"][node] &= ~np.uint8(FLAG_DELETED)
+        self.store.mark_dirty(node, "flags")
+        self._delete_node(node)
+
+    def delete_tombstoned_bulk(self, nodes) -> int:
+        """Remove many tombstoned nodes in one pass (the reference's
+        ``executeReadySwapJobs``, hnsw_tiered.h:332-362): one referrer sweep
+        over the link arrays for the whole set, one grouped re-prune, then a
+        compaction of both stores on the device (a gather of the live rows
+        and a remap of the link ids) instead of a swap-with-last per node.
+
+        Every node must be tombstoned (``mark_delete``). Returns the number
+        removed; ``num_marked_deleted`` is the caller's to lower."""
+        nodes = [int(x) for x in nodes]
+        if not nodes:
+            return 0
+        with self._lock:
+            return self._delete_tombstoned_bulk_locked(nodes)
+
+    def _delete_tombstoned_bulk_locked(self, nodes: list[int]) -> int:
+        self._ensure_host_links()
+        count = self.store.count
+        deleted = np.zeros(count, dtype=bool)
+        deleted[nodes] = True
+        if not (self.store.host["flags"][nodes] & FLAG_DELETED).all():
+            raise ValueError("bulk removal takes tombstoned nodes only")
+        l0 = self.store.host["links0"][:count]
+        nl0 = self.store.host["nlinks0"][:count]
+
+        # --- neighbour repair (the reference's repair jobs) ---
+        def repair_candidates(ref: int, lvl: int, row: np.ndarray):
+            own = [int(x) for x in row if not deleted[x]]
+            borrowed: list[int] = []
+            for nb in row:
+                if deleted[nb]:
+                    borrowed.extend(
+                        x for x in self.get_links(int(nb), lvl) if x != ref and not deleted[x]
+                    )
+            cand = list(dict.fromkeys(own + borrowed))
+            cap_l = self.M0 if lvl == 0 else self.M
+            if len(cand) <= cap_l and not borrowed:
+                self.set_links(ref, lvl, cand)
+                return None
+            return (ref, lvl, cand)
+
+        repairs: list[tuple[int, int, list[int]]] = []
+        hit0 = np.nonzero(((l0 >= 0) & deleted[np.maximum(l0, 0)]).any(axis=1) & ~deleted)[0]
+        for ref in hit0:
+            r = repair_candidates(int(ref), 0, l0[ref][: nl0[ref]])
+            if r is not None:
+                repairs.append(r)
+        ucount = self.upper.count
+        if ucount:
+            ul = self.upper.host["links"][:ucount]
+            un = self.upper.host["nlinks"][:ucount]
+            vec = self.upper.host["vec"][:ucount]
+            rows_u, lvls_u = np.nonzero(((ul >= 0) & deleted[np.maximum(ul, 0)]).any(axis=2))
+            for r, li in zip(rows_u, lvls_u):
+                ref = int(vec[r])
+                if deleted[ref]:
+                    continue
+                r2 = repair_candidates(ref, int(li) + 1, ul[r, li][: un[r, li]])
+                if r2 is not None:
+                    repairs.append(r2)
+        self.last_bulk_repairs = len(repairs)
+        if repairs:
+            self._reprune_rows(repairs)
+
+        # --- entry point: the tombstone flags exclude the whole set ---
+        if self.entry_id >= 0 and deleted[self.entry_id]:
+            self._replace_entry_point(exclude=self.entry_id)
+
+        # --- compaction: live rows slide down, link ids remap ---
+        live = np.nonzero(~deleted)[0]
+        nlive = len(live)
+        perm = np.full(count, -1, dtype=np.int32)
+        perm[live] = np.arange(nlive, dtype=np.int32)
+        uvec = self.upper.host["vec"][:ucount]
+        ulive = np.nonzero(~deleted[np.maximum(uvec, 0)] & (uvec >= 0))[0]
+        nu = len(ulive)
+        uperm = np.full(max(ucount, 1), -1, dtype=np.int32)
+        uperm[ulive] = np.arange(nu, dtype=np.int32)
+
+        # The sync pushes the repairs and applies deferred row moves, so the
+        # device tensors hold every row's newest content; then both stores
+        # are compacted on the device (re-uploading compacted host columns
+        # would move the whole store through the host link, and the host
+        # mirror of a device-authoritative field holds nothing).
+        self._nav_cache = None  # its shadow of the old rows goes too
+        dev, udev, _ = self._device_ctx()
+        cap = self.store.capacity
+        idx = np.full(cap, max(count - 1, 0), dtype=np.int64)
+        idx[:nlive] = live
+        uidx = np.zeros(self.upper.capacity, dtype=np.int64)
+        uidx[:nu] = ulive
+        perm_pad = np.full(cap, -1, dtype=np.int32)
+        perm_pad[:count] = perm
+        uperm_pad = np.full(max(self.upper.capacity, 1), -1, dtype=np.int32)
+        uperm_pad[: len(uperm)] = uperm
+        new_dev, new_udev = _compact_stores(
+            dev, udev, *(torch.from_numpy(a).to(self.device) for a in (idx, uidx, perm_pad,
+                                                                        uperm_pad)))
+        del dev, udev
+        self.store._device.update(new_dev)
+        self.upper._device.update(new_udev)
+        del new_dev, new_udev
+
+        # Host mirrors follow the same permutation; device-authoritative
+        # fields stay so (their host rows are pulled on demand).
+        for st, rows, n_keep in ((self.store, live, nlive), (self.upper, ulive, nu)):
+            for name in st.fields:
+                if name not in st._host_stale:
+                    st.host[name][:n_keep] = st.host[name][rows]
+            for dset in st._dirty_rows.values():
+                dset.clear()
+            st._dirty_from = n_keep
+        lh = self.store.host["links0"][:nlive]
+        lh[:] = np.where(lh >= 0, perm_pad[np.maximum(lh, 0)], -1)
+        urh = self.store.host["upper_row"][:nlive]
+        urh[:] = np.where(urh >= 0, uperm[np.maximum(urh, 0)], -1)
+        if nu:
+            ulh = self.upper.host["links"][:nu]
+            ulh[:] = np.where(ulh >= 0, perm_pad[np.maximum(ulh, 0)], -1)
+            uvh = self.upper.host["vec"][:nu]
+            uvh[:] = np.where(uvh >= 0, perm[np.maximum(uvh, 0)], -1)
+        self.store.count = nlive
+        self.upper.count = nu
+
+        # --- label map + entry remap ---
+        if self.entry_id >= 0:
+            self.entry_id = int(perm[self.entry_id])
+        self.labels = type(self.labels)()
+        rebuild_labels(self)
+        return len(nodes)
 
     def mark_delete(self, label: int) -> list[int]:
         """Tombstone all vectors of a label; they stay traversable."""
