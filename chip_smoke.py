@@ -88,6 +88,30 @@ check:
    raise (``threading.excepthook`` records every exception). Prints vectors
    per second and QPS over the same window, the migration batches, the GC
    seconds and the peak device memory.
+10. SVS-Vamana at the reference's defaults (``benchmarks/svs_build_bench.py``):
+   ``create_index`` with no ``device``, 100,000 x 768 embedding-like fp32
+   Cosine rows (a cut of the bench's 1M for time), graph_max_degree 32,
+   construction_window_size 200, ``quantBits`` Q4x8 (a 4-bit primary and an
+   8-bit residual re-rank), built by ``bulk_build_device`` from rows on the
+   card. Per search window 10, 50, 100, 200: ``search_knn`` (B = 1024, k =
+   10) and ``topk_query_batch`` with its re-rank, timed, and recall@10 by
+   label against the exact flat index (K1), which must reach 0.85 at 200;
+   every re-ranked distance of 16 replies equals ``get_distance_from``
+   within 1e-3. Then 64 eager ``delete_vector`` calls (ms each), recall
+   after them and no deleted label answering. Last, each other mode (NONE,
+   Scalar, Q4, Q8, Q4x4, Q4x8_LeanVec, Q8x8_LeanVec) at 10,000 x 768: one
+   build and one search at window 100, recall@10 at least 0.75 for Q4 and
+   0.85 for the others (the JAX package's floors, tests/test_svs_quant.py).
+11. The tiered SVS index: ``create_index(VecSimAlgo.TIERED)`` over phase
+   10's configuration, trainingTriggerThreshold 10,240 and
+   updateTriggerThreshold 1,024 (the reference's defaults), a
+   ``JobQueueThreadPool(2)``; a writer thread adds 20,480 fresh rows while
+   the main thread runs query batches (B = 1024, k = 10, window 200) until
+   the queue is idle; K1 must answer the flat tier in that window. Then
+   1,024 deletes and the GC. recall@10 at least 0.85 after the ingest and
+   after the GC, no deleted label answering, no thread raising. Prints
+   vectors/s and QPS over the window, the migrations, K1's launches, the GC
+   seconds and the peak device memory.
 
 Every timing line ends with the card's name and power limit. The script
 prints one JSON line of kernel results (one entry per kernel and lane) and,
@@ -1002,9 +1026,9 @@ def _new_rows(dev, n, seed):
     return embedding_like(gen, n, DIM, latent_generator=lat)
 
 
-def _check_replies(replies, truth, gone, what, smi):
+def _check_replies(replies, truth, gone, what, smi, floor=HNSW_MIN_RECALL):
     """recall@10 of the replies against ``truth`` (labels) at least
-    HNSW_MIN_RECALL, and no label of ``gone`` in any reply."""
+    ``floor``, and no label of ``gone`` in any reply."""
     got = reply_labels(replies, truth.shape[1])
     rec = label_recall(got, truth)
     back = set(np.unique(got).tolist()) & gone
@@ -1012,8 +1036,8 @@ def _check_replies(replies, truth, gone, what, smi):
           f"live rows, {len(back)} deleted labels in the replies; card {smi}", flush=True)
     if back:
         raise AssertionError(f"{what}: deleted labels answered: {sorted(back)[:8]}")
-    if rec < HNSW_MIN_RECALL:
-        raise AssertionError(f"{what}: recall@10 {rec:.4f} below {HNSW_MIN_RECALL}")
+    if rec < floor:
+        raise AssertionError(f"{what}: recall@10 {rec:.4f} below {floor}")
     return rec
 
 
@@ -1236,6 +1260,277 @@ def phase_tiered(dev, smi, n=HNSW_N):
     return out
 
 
+# Phase 10: SVS-Vamana at the reference's defaults (SVS_VAMANA_DEFAULT_*,
+# benchmarks/svs_build_bench.py): graph_max_degree 32, construction window
+# 200, two-level LVQ (quantBits Q4x8), on N embedding-like fp32 Cosine rows,
+# N a cut of the bench's 1M for the smoke's time (PERF.md).
+SVS_N, SVS_R, SVS_L, SVS_QUANT = 100_000, 32, 200, "Q4x8"
+SVS_WS = (10, 50, 100, 200)
+SVS_SMALL_N = 10_000
+SVS_SMALL_MODES = ("NONE", "Scalar", "Q4", "Q8", "Q4x4", "Q4x8_LeanVec", "Q8x8_LeanVec")
+SVS_SMALL_WS = 100
+# recall@10 floors: the JAX package's own (tests/test_svs_quant.py:143).
+SVS_MIN_RECALL, SVS_Q4_MIN_RECALL = 0.85, 0.75
+SVS_RERANK_TOL = 1e-3  # re-ranked distance vs get_distance_from (test_svs_quant.py:170)
+
+
+def _svs_params(mode, **kw):
+    from vectorsimilarity_tpu_torch import types as T
+
+    return T.VecSimParams(algo=T.VecSimAlgo.SVS, svsParams=T.SVSParams(
+        type=T.VecSimType.FLOAT32, dim=DIM, metric=T.VecSimMetric.Cosine,
+        quantBits=T.VecSimSvsQuantBits[mode], graph_max_degree=SVS_R,
+        construction_window_size=SVS_L, **kw))
+
+
+def _ws_params(ws):
+    from vectorsimilarity_tpu_torch import types as T
+
+    qp = T.VecSimQueryParams()
+    qp.svsRuntimeParams.windowSize = ws
+    return qp
+
+
+def _timed(fn, reps=3):
+    """(median ms, last result) of ``reps`` calls, each synchronized."""
+    times, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def phase_svs(dev, smi, n=SVS_N, small_n=SVS_SMALL_N):
+    """Phase 10: build the Q4x8 SVS index on the card through the entry
+    points a user calls (``create_index`` with no device,
+    ``bulk_build_device``), search it per window with ``search_knn`` and
+    ``topk_query_batch`` (its re-rank), hold recall@10 against the port's
+    exact flat index (K1) and the re-ranked distances against
+    ``get_distance_from``; 64 eager deletes; then one build and one search
+    per other mode at ``small_n`` rows. Prints build v/s and dropped
+    back-edges, ms / QPS / recall per window, the re-rank's share, ms per
+    delete and the peak device memory. Returns {"build_s", ...}."""
+    from vectorsimilarity_tpu_torch import create_index
+    from vectorsimilarity_tpu_torch.utils.synthetic import embedding_like
+
+    k = 10
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = embedding_like(gen, n + BATCH, DIM)
+    data, queries = rows[:n], rows[n:]
+    host = queries.cpu().numpy()
+    idx = create_index(_svs_params(SVS_QUANT))
+    if idx.device.type != "cuda":
+        raise AssertionError(f"create_index put the SVS index on {idx.device}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx.bulk_build_device(data)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    out = {"n": n, "build_s": build_s, "build_vps": n / build_s, "dropped": idx.build_dropped()}
+    print(f"# svs build {n} x {DIM} fp32 Cosine {SVS_QUANT} R={SVS_R} L={SVS_L}: {build_s:.1f} s, "
+          f"{n / build_s:.1f} vectors/s, dropped back-edges {out['dropped']}, medoid "
+          f"{idx.entry_id}; card {smi}", flush=True)
+    truth = exact_labels(data, np.arange(n), queries, k)
+    out.update(search_ms={}, search_recall={}, topk_ms={}, topk_recall={})
+    for ws in SVS_WS:
+        idx.search_knn(host, k, ws)  # warm-up
+        ms, (_, ids) = _timed(lambda: idx.search_knn(host, k, ws))
+        out["search_ms"][ws], out["search_recall"][ws] = ms, label_recall(ids, truth)
+        qp = _ws_params(ws)
+        ms_t, replies = _timed(lambda: idx.topk_query_batch(host, k, qp))
+        out["topk_ms"][ws] = ms_t
+        out["topk_recall"][ws] = label_recall(reply_labels(replies, k), truth)
+        print(f"# svs search B={BATCH} k={k} ws={ws}: search_knn {ms:.2f} ms ({BATCH * 1e3 / ms:.1f} "
+              f"QPS, recall@10 {out['search_recall'][ws]:.4f} in 4-bit order), "
+              f"topk_query_batch with the re-rank {ms_t:.2f} ms ({BATCH * 1e3 / ms_t:.1f} QPS, "
+              f"recall@10 {out['topk_recall'][ws]:.4f}); card {smi}", flush=True)
+    # The window-200 read taken apart: the beam, the re-rank, the host rest.
+    with idx._lock:
+        beam_ms, (bd, bi) = _timed(lambda: idx._search_knn_locked(host, k, 200))
+        rerank_ms, _ = _timed(lambda: idx._refine(host, bd, bi))
+    out["beam_ms"], out["rerank_ms"] = beam_ms, rerank_ms
+    out["host_ms"] = out["topk_ms"][200] - beam_ms - rerank_ms
+    print(f"# svs topk_query_batch ws=200 taken apart: beam {beam_ms:.2f} ms, re-rank "
+          f"(gathered_recon_dists + sort) {rerank_ms:.2f} ms, host rest {out['host_ms']:.2f} ms; "
+          f"card {smi}", flush=True)
+    replies = idx.topk_query_batch(host[:16], k, _ws_params(200))
+    worst = max(abs(float(d) - idx.get_distance_from(int(lab), host[j]))
+                for j, r in enumerate(replies) for lab, d in zip(r.ids, r.scores))
+    out["rerank_err"] = worst
+    print(f"# svs re-ranked distances vs get_distance_from: max |diff| {worst:.3e} over 16 "
+          f"replies; card {smi}", flush=True)
+    if worst > SVS_RERANK_TOL:
+        raise AssertionError(f"re-ranked distance off get_distance_from by {worst}")
+    if out["topk_recall"][200] < SVS_MIN_RECALL:
+        raise AssertionError(f"SVS {SVS_QUANT} recall@10 at ws=200 "
+                             f"{out['topk_recall'][200]:.4f} below {SVS_MIN_RECALL}")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"# svs peak device memory {out['peak_gib']:.2f} GiB; card {smi}", flush=True)
+
+    # 64 eager deletes, then the window-200 read over the live rows.
+    gone = np.random.default_rng(SEED + 10).permutation(n)[:WRITE_EAGER]
+    times = []
+    for lab in gone:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if idx.delete_vector(int(lab)) != 1:
+            raise AssertionError(f"svs delete_vector({lab}) removed nothing")
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["delete_ms"], out["delete_ms_first"] = statistics.median(times), times[0]
+    print(f"# svs writes: {WRITE_EAGER} eager delete_vector calls, {out['delete_ms']:.2f} ms per "
+          f"delete (median; mean {statistics.fmean(times):.2f}, first {times[0]:.2f}, which "
+          f"pulls the device-built links to the host once); card {smi}", flush=True)
+    live = np.setdiff1d(np.arange(n), gone)
+    truth = exact_labels(data[torch.from_numpy(live).to(dev)], live, queries, k)
+    out["recall_deletes"] = _check_replies(
+        idx.topk_query_batch(host, k, _ws_params(200)), truth, set(gone.tolist()),
+        f"svs after the deletes: topk_query_batch B={BATCH} ws=200", smi, SVS_MIN_RECALL)
+    del idx
+    torch.cuda.empty_cache()
+
+    # Every other mode at small_n rows: one build, one search.
+    sub, truth = data[:small_n], None
+    truth = exact_labels(sub, np.arange(small_n), queries, k)
+    out["modes"] = {}
+    for mode in SVS_SMALL_MODES:
+        midx = create_index(_svs_params(mode))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        midx.bulk_build_device(sub)
+        torch.cuda.synchronize()
+        b_s = time.perf_counter() - t0
+        ms, replies = _timed(lambda: midx.topk_query_batch(host, k, _ws_params(SVS_SMALL_WS)), 1)
+        rec = label_recall(reply_labels(replies, k), truth)
+        floor = SVS_Q4_MIN_RECALL if mode == "Q4" else SVS_MIN_RECALL
+        out["modes"][mode] = {"build_s": b_s, "ms": ms, "recall": rec}
+        print(f"# svs {mode} {small_n} x {DIM}: build {b_s:.1f} s ({small_n / b_s:.1f} v/s), "
+              f"topk_query_batch B={BATCH} ws={SVS_SMALL_WS} {ms:.2f} ms, recall@10 {rec:.4f} "
+              f"(floor {floor}); card {smi}", flush=True)
+        if rec < floor:
+            raise AssertionError(f"SVS {mode} recall@10 {rec:.4f} below {floor}")
+        del midx
+    del rows, data, queries, sub
+    torch.cuda.empty_cache()
+    return out
+
+
+# Phase 11: tiered SVS over phase 10's configuration with the reference's
+# thresholds (vec_sim_common.h:53: training 10 x 1024, update 1024) and the
+# job queue of benchmarks/concurrent_bench.py.
+TSVS_INGEST, TSVS_TRAIN, TSVS_UPDATE, TSVS_DELETES = 20_480, 10_240, 1_024, 1_024
+
+
+def phase_tiered_svs(dev, smi, n=TSVS_INGEST):
+    """Phase 11: ``create_index(VecSimAlgo.TIERED)`` over phase 10's SVS
+    configuration (trainingTriggerThreshold 10,240, updateTriggerThreshold
+    1,024, a ``JobQueueThreadPool(2)``). A writer thread adds ``n`` fresh
+    rows by ``add_vector`` while the main thread loops
+    ``topk_query_batch`` (B = 1024, k = 10, window 200) until the queue is
+    idle; the group-min kernel K1 must answer the flat tier in that window.
+    Then 1,024 ``delete_vector`` calls and ``run_gc``. recall@10 by label
+    against the exact flat index over the live rows after the ingest and
+    after the GC, and no deleted label answers. Prints vectors/s and QPS
+    over the window, the migrations, K1's launches, the GC seconds and the
+    peak device memory."""
+    from vectorsimilarity_tpu_torch import create_index
+    from vectorsimilarity_tpu_torch import types as T
+    from vectorsimilarity_tpu_torch.ops.kernels.bf_topk import group_min_scores
+    from vectorsimilarity_tpu_torch.utils.synthetic import embedding_like
+    from vectorsimilarity_tpu_torch.utils.thread_pool import JobQueueThreadPool
+
+    k = 10
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    queries = embedding_like(gen, BATCH, DIM)
+    new = _new_rows(dev, n, SEED + 11)
+    new_host, host_q = new.cpu().numpy(), queries.cpu().numpy()
+    qp = _ws_params(200)
+    out = {"n": n}
+    pool = JobQueueThreadPool(TIERED_THREADS)
+    try:
+        tparams = T.TieredIndexParams(
+            primaryIndexParams=_svs_params(SVS_QUANT), jobQueue=pool, submitCb=pool.submit_cb,
+            tieredHnswParams=T.TieredHNSWParams(swapJobThreshold=100_000),  # the GC runs below
+            tieredSVSParams=T.TieredSVSParams(trainingTriggerThreshold=TSVS_TRAIN,
+                                              updateTriggerThreshold=TSVS_UPDATE))
+        idx = create_index(T.VecSimParams(algo=T.VecSimAlgo.TIERED, tieredParams=tparams))
+        if idx.device.type != "cuda" or idx.frontend.device != idx.device:
+            raise AssertionError(f"create_index put the tiered SVS index on {idx.device}")
+
+        def writer():
+            for j in range(n):
+                idx.add_vector(new_host[j], j)
+
+        group_min_scores.launches = group_min_scores.tc_launches = 0
+        w = threading.Thread(target=writer, name="tiered-svs-writer")
+        batches = 0
+        t0 = time.perf_counter()
+        w.start()
+        while w.is_alive() or not pool.wait_for_quiescence(0):
+            idx.topk_query_batch(host_q, k, qp)
+            batches += 1
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError("the tiered SVS ingest did not finish within 600 s")
+        window = time.perf_counter() - t0
+        w.join()
+        launches = (group_min_scores.tc_launches, group_min_scores.launches)
+        out.update(ingest_vps=n / window, qps=batches * BATCH / window, window_s=window,
+                   query_batches=batches, k1_launches=launches[0], migrations=idx.migrations,
+                   flat_left=idx.frontend.index_size)
+        print(f"# tiered svs: a writer thread added {n} vectors by add_vector (into the "
+              f"backend in {idx.migrations} migrations: training at {TSVS_TRAIN}, then every "
+              f"{TSVS_UPDATE}; {idx.frontend.index_size} left in the flat tier) while the main "
+              f"thread ran {batches} topk_query_batch calls (B={BATCH}, k={k}, ws=200), over the "
+              f"same {window:.2f} s: {out['ingest_vps']:.1f} vectors/s, {out['qps']:.1f} QPS; "
+              f"the flat tier's K1 launched {launches[0]} times on the tensor cores, "
+              f"{launches[1]} on the CUDA cores; card {smi}", flush=True)
+        if launches[0] == 0 or launches[1] != 0:
+            raise AssertionError("the tiered SVS queries did not run the tensor-core K1 on the "
+                                 "flat tier")
+        if idx.migrations < 1 or idx.index_size != n:
+            raise AssertionError(f"{idx.migrations} migrations, {idx.index_size} rows")
+        labels = np.arange(n)
+        truth = exact_labels(new, labels, queries, k)
+        out["recall_ingest"] = _check_replies(idx.topk_query_batch(host_q, k, qp), truth, set(),
+                                              "tiered svs after the ingest", smi, SVS_MIN_RECALL)
+
+        gone = np.random.default_rng(SEED + 11).choice(n, TSVS_DELETES, replace=False)
+        for lab in gone:
+            if idx.delete_vector(int(lab)) != 1:
+                raise AssertionError(f"tiered svs delete_vector({lab}) removed nothing")
+        marked = idx.backend.num_marked_deleted
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx.run_gc()
+        torch.cuda.synchronize()
+        out["gc_s"], out["gc_removed"] = time.perf_counter() - t0, marked
+        if idx.backend.num_marked_deleted or idx.index_size != n - TSVS_DELETES:
+            raise AssertionError("the GC left tombstones")
+        print(f"# tiered svs: {TSVS_DELETES} delete_vector calls ({marked} tombstones in the "
+              f"backend, the rest removed from the flat tier), then run_gc: {out['gc_s']:.3f} s; "
+              f"card {smi}", flush=True)
+        live = np.setdiff1d(labels, gone)
+        truth = exact_labels(new[torch.from_numpy(live).to(dev)], live, queries, k)
+        out["recall_gc"] = _check_replies(idx.topk_query_batch(host_q, k, qp), truth,
+                                          set(gone.tolist()), "tiered svs after the GC", smi,
+                                          SVS_MIN_RECALL)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"# tiered svs peak device memory {out['peak_gib']:.2f} GiB; card {smi}",
+              flush=True)
+    finally:
+        pool.shutdown()
+    del idx, queries, new
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1313,6 +1608,12 @@ def main() -> int:
     # 9. The tiered HNSW index with its job queue.
     tiered = phase_tiered(dev, smi)
     print("# tiered json " + json.dumps(tiered), flush=True)
+
+    # 10. SVS-Vamana on the card; 11. the tiered SVS index.
+    svs = phase_svs(dev, smi)
+    print("# svs json " + json.dumps(svs), flush=True)
+    tiered_svs = phase_tiered_svs(dev, smi)
+    print("# tiered svs json " + json.dumps(tiered_svs), flush=True)
     if thread_errors:
         raise AssertionError(f"{len(thread_errors)} thread(s) raised: "
                              f"{[repr(a.exc_value) for a in thread_errors]}")

@@ -378,13 +378,23 @@ def test_tiered_from_jax_refuses_pending_jobs():
 
 
 def test_tiered_svs_raises_and_the_default_device_is_the_card():
-    primary = tvs.VecSimParams(algo=tvs.VecSimAlgo.SVS)
-    params = tvs.VecSimParams(algo=tvs.VecSimAlgo.TIERED,
-                              tieredParams=tvs.TieredIndexParams(primaryIndexParams=primary))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 3"):
-        tvs.create_index(params, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tapi.VecSimIndex_EstimateElementSize(params)
+    """Tiered SVS is ported (tests/test_torch_tiered_svs.py): it builds on
+    the CPU, and its host-orchestrated construction raises."""
+    def params_of(pkg):
+        primary = pkg.VecSimParams(algo=pkg.VecSimAlgo.SVS, svsParams=pkg.SVSParams(dim=DIM))
+        return pkg.VecSimParams(algo=pkg.VecSimAlgo.TIERED,
+                                tieredParams=pkg.TieredIndexParams(primaryIndexParams=primary))
+
+    idx = tvs.create_index(params_of(tvs), device="cpu")
+    assert idx.backend.device.type == "cpu"
+    assert tapi.VecSimIndex_EstimateElementSize(params_of(tvs)) == \
+        japi.VecSimIndex_EstimateElementSize(params_of(jvs))
+    saved, tvs.config.graph_build_device = tvs.config.graph_build_device, False
+    try:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 4"):
+            idx.backend.add_vector(np.zeros(DIM, np.float32), 1)
+    finally:
+        tvs.config.graph_build_device = saved
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tvs.create_index(_tiered_params(tvs))

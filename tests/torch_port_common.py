@@ -141,3 +141,54 @@ def hnsw_params(pkg, multi: bool = False):
     return pkg.VecSimParams(algo=pkg.VecSimAlgo.HNSWLIB, hnswParams=pkg.HNSWParams(
         type=pkg.VecSimType.FLOAT32, dim=HNSW_DIM, metric=pkg.VecSimMetric.Cosine,
         multi=multi, M=8, efConstruction=64))
+
+
+# ---------------------------------------------------------------------------
+# SVS: embedding-like rows and the tests' JAX SVS builds
+# ---------------------------------------------------------------------------
+
+SVS_N, SVS_DIM, SVS_BATCH = 512, 32, 128
+
+
+def embedding_rows(rng, n: int, d: int, intrinsic: int = 8) -> np.ndarray:
+    """Unit rows of low intrinsic dimension (``tests/test_svs_quant.py``'s
+    ``embedding_like_np``): the regime quantization and LeanVec serve."""
+    lat = rng.standard_normal((n, intrinsic)).astype(np.float32)
+    proj = rng.standard_normal((intrinsic, d)).astype(np.float32)
+    x = lat @ proj + 0.05 * rng.standard_normal((n, d)).astype(np.float32)
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+def svs_params(pkg, quant: str, metric: str = "Cosine", multi: bool = False, **kw):
+    """``VecSimParams`` of the tests' SVS configuration (R = 16, L = 64,
+    ws = 32 unless ``kw`` says otherwise), from either package's module."""
+    sp = dict(type=pkg.VecSimType.FLOAT32, dim=SVS_DIM, metric=pkg.VecSimMetric[metric],
+              multi=multi, quantBits=pkg.VecSimSvsQuantBits[quant], graph_max_degree=16,
+              construction_window_size=64, search_window_size=32)
+    sp.update(kw)
+    return pkg.VecSimParams(algo=pkg.VecSimAlgo.SVS, svsParams=pkg.SVSParams(**sp))
+
+
+def svs_build(idx, x, cfg) -> None:
+    """``add_vector_batch`` of rows x with ``cfg.build_batch = SVS_BATCH``:
+    connect chunks of one shape, the later ones searching the graph of the
+    earlier."""
+    saved, cfg.build_batch = cfg.build_batch, SVS_BATCH
+    try:
+        idx.add_vector_batch(x, list(range(len(x))))
+    finally:
+        cfg.build_batch = saved
+
+
+def jax_svs_index(quant: str):
+    """A JAX SVS index of ``SVS_N`` x ``SVS_DIM`` embedding-like Cosine rows
+    (seed 0) in mode ``quant``, its links pulled to the host. Returns
+    (index, rows)."""
+    import vectorsimilarity_tpu as vs
+    from vectorsimilarity_tpu import config
+
+    x = embedding_rows(np.random.default_rng(0), SVS_N, SVS_DIM)
+    idx = vs.create_index(svs_params(vs, quant))
+    svs_build(idx, x, config)
+    idx._ensure_host_links()
+    return idx, x

@@ -9,8 +9,12 @@ hand-written kernels (``csrc/``: group-min for k <= 32, fused top-k for k <=
 scan. The HNSW index, built and searched on the device (``ops/graph_build.py``,
 ``ops/graph_search.py``): inserts, bulk builds, overwrites, deletes with
 graph repair, tombstones and their bulk removal, k-NN, range queries and
-batch iterators. The tiered HNSW index (a flat frontend and an HNSW backend
-with a job queue, ``utils/thread_pool.py``). The query surface of all:
+batch iterators. SVS-Vamana (``indexes/svs.py``): the single-level graph
+built and searched on the device, in every ``quantBits`` mode (SQ8, LVQ
+4-bit, two-level LVQ and LeanVec, ``ops/quantize.py``), with deletes and
+tombstones. The tiered HNSW and tiered SVS indexes (a flat frontend and a
+graph backend with a job queue, ``utils/thread_pool.py``, which also holds
+the shared SVS worker pool). The query surface of all:
 ``api`` (the C API's entry points), ``query_params``, hybrid (filtered)
 queries and the ad-hoc scoring context. Stores live on the current CUDA
 device unless the caller passes ``device="cpu"``. The package imports torch
@@ -22,8 +26,10 @@ from .types import (  # noqa: F401
     BFParams,
     HNSWParams,
     QueryReplyOrder,
+    SVSParams,
     TieredHNSWParams,
     TieredIndexParams,
+    TieredSVSParams,
     VecSearchMode,
     VecSimAlgo,
     VecSimIndexBasicInfo,
@@ -34,6 +40,7 @@ from .types import (  # noqa: F401
     VecSimQueryParams,
     VecSimQueryReplyCode,
     VecSimResolveCode,
+    VecSimSvsQuantBits,
     VecSimType,
     VecSimWriteMode,
     VecsimQueryType,

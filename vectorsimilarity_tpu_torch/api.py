@@ -2,12 +2,10 @@
 
 Counterpart of ``vectorsimilarity_tpu/api.py``. Every ``extern "C"`` entry
 point in ``src/VecSim/vec_sim.h:28-331`` has a function here with the same
-name and contract, for the flat, HNSW and tiered HNSW indexes.
+name and contract, for the flat, HNSW, SVS and tiered indexes.
 ``VecSimIndex_New`` puts the index on the current CUDA device unless
-``device`` names another. ``VecSim_UpdateThreadPoolSize`` (which sizes the
-SVS pool) raises ``NotImplementedError`` until the SVS slice lands. The
-object-oriented surface (``VecSimIndexBase`` methods) remains the idiomatic
-way to use the library.
+``device`` names another. The object-oriented surface (``VecSimIndexBase``
+methods) remains the idiomatic way to use the library.
 """
 
 from __future__ import annotations
@@ -37,6 +35,7 @@ from .types import (
     type_size,
 )
 from .utils.info import debug_info_iterator, get_shared_memory
+from .utils.thread_pool import SharedSVSThreadPool
 
 
 def VecSimIndex_New(params: VecSimParams, *, device=None):
@@ -208,9 +207,12 @@ def VecSim_SetMemoryFunctions(funcs) -> None:
 
 
 def VecSim_UpdateThreadPoolSize(new_size: int) -> None:
-    """vec_sim.cpp:38-48 flips the write mode and resizes the shared SVS
-    thread pool, which is not ported yet."""
-    raise NotImplementedError("the SVS thread pool is not ported yet (ROADMAP.md queue 1, item 3)")
+    """vec_sim.cpp:38-48: size 0 flips writes to in-place, nonzero to async,
+    and the shared SVS pool resizes (clamped to 1; deferred until the first
+    SVS index attaches, and a shrink waits for scheduled jobs to end)."""
+    VecSimIndexBase.set_write_mode(
+        VecSimWriteMode.InPlace if new_size == 0 else VecSimWriteMode.Async)
+    SharedSVSThreadPool.instance().resize(new_size)
 
 
 def VecSimDebug_GetElementNeighborsInHNSWGraph(index, label: int):

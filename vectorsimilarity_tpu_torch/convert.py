@@ -18,13 +18,22 @@ graph, and ``hnsw_from_jax(index, device=...)`` chains the two: a JAX
 An HNSW index of this package can be carried from one device to another the
 same way.
 
-``export_tiered_state`` does the same for a tiered HNSW index of either
-package: the frontend as flat state (with its ``opid`` column where the
-index is multi-value), the backend as HNSW state, and the tiered counters.
-It raises while insert jobs are pending or mid-migration: their vectors are
-in neither tier's final place. ``tiered_from_state`` builds this package's
-``TieredHNSWIndex`` (with no job queue: its jobs run inline), and
-``tiered_from_jax`` chains the two.
+``export_svs_state`` does the same for an SVS index of either package: the
+store's host columns (codes or rows, ``links``, ``nlinks``, ``flags``, and
+``vmin`` / ``delta`` / ``res`` / ``rvmin`` / ``rdelta`` / ``sqnorm`` /
+``rsq`` / ``norm`` / ``slot`` where the mode has them), the medoid entry,
+the tombstone count, the medoid refresh counter, the label map and the
+LeanVec projection ``_P``. ``svs_from_state`` and ``svs_from_jax`` build
+this package's ``SVSIndex`` from it.
+
+``export_tiered_state`` does the same for a tiered HNSW or tiered SVS index
+of either package: the frontend as flat state (with its ``opid`` column
+where the index is multi-value), the backend as HNSW or SVS state, and the
+tiered counters and thresholds. It raises while jobs are pending or
+mid-migration: their vectors are in neither tier's final place.
+``tiered_from_state`` builds this package's ``TieredHNSWIndex`` or
+``TieredSVSIndex`` (with no job queue: its jobs run inline), and
+``tiered_from_jax`` / ``tiered_svs_from_jax`` chain the two.
 
 Nothing here imports jax: a caller holding a JAX index hands it over, and
 only numpy comes back out of it.
@@ -35,18 +44,25 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from .indexes.brute_force import BruteForceIndex
 from .indexes.hnsw import HNSWIndex
+from .indexes.svs import SVSIndex
 from .indexes.tiered import TieredHNSWIndex
+from .indexes.tiered_svs import TieredSVSIndex
 from .types import (
     BFParams,
     HNSWParams,
+    SVSParams,
     TieredHNSWParams,
     TieredIndexParams,
+    TieredSVSParams,
     VecSimAlgo,
     VecSimMetric,
+    VecSimOptionMode,
     VecSimParams,
+    VecSimSvsQuantBits,
     VecSimType,
 )
 
@@ -185,37 +201,102 @@ def hnsw_from_jax(index, *, device=None) -> HNSWIndex:
     return hnsw_from_state(export_hnsw_state(index), device=device)
 
 
+def export_svs_state(index) -> dict:
+    """State of an SVS index of either package (see the module docstring);
+    plain Python and numpy values only."""
+    index._ensure_host_links()
+    P = index._P
+    if isinstance(P, torch.Tensor):
+        P = P.cpu().numpy()
+    return {
+        "params": _params_state(index.params),
+        **_store_state(index.store),
+        "entry_id": int(index.entry_id),
+        "num_marked_deleted": int(index.num_marked_deleted),
+        "inserts_since_medoid": int(index._inserts_since_medoid),
+        "labels": _label_state(index.labels),
+        "P": None if P is None else np.array(P, dtype=np.float32),
+    }
+
+
+def _svs_params(p: dict) -> SVSParams:
+    return dataclasses.replace(
+        SVSParams(**p),
+        type=VecSimType(p["type"]),
+        metric=VecSimMetric(p["metric"]),
+        quantBits=VecSimSvsQuantBits(p["quantBits"]),
+        use_search_history=VecSimOptionMode(p["use_search_history"]),
+    )
+
+
+def svs_from_state(state: dict, *, device=None) -> SVSIndex:
+    """This package's ``SVSIndex`` on ``device`` (the current CUDA device by
+    default, the CPU only on request) holding the exported graph, codes,
+    ids, labels, entry point and LeanVec projection."""
+    index = SVSIndex(_svs_params(state["params"]), device=device)
+    _fill_store(index.store, state)
+    _fill_labels(index, state["labels"])
+    index.entry_id = state["entry_id"]
+    index.num_marked_deleted = state["num_marked_deleted"]
+    index._inserts_since_medoid = state["inserts_since_medoid"]
+    if state["P"] is not None:
+        index._P = torch.from_numpy(state["P"]).to(index.device)
+    return index
+
+
+def svs_from_jax(index, *, device=None) -> SVSIndex:
+    """A JAX package ``SVSIndex`` carried across to this package's."""
+    return svs_from_state(export_svs_state(index), device=device)
+
+
 def export_tiered_state(index) -> dict:
-    """State of a tiered HNSW index of either package (see the module
+    """State of a tiered HNSW or SVS index of either package (see the module
     docstring); plain Python and numpy values only. Raises ``ValueError``
-    while insert jobs are pending."""
+    while jobs are pending."""
     with index._glock:
-        if index._insert_jobs or index._inflight:
-            raise ValueError("insert jobs are pending: wait for the job queue to drain first")
-        return {
+        svs = hasattr(index, "update_threshold")
+        if index._insert_jobs or index._inflight or getattr(index, "_update_scheduled", False):
+            raise ValueError("jobs are pending: wait for the job queue to drain first")
+        state = {
             "flat_buffer_limit": int(index.flat_buffer_limit),
             "swap_job_threshold": int(index.swap_job_threshold),
             "pending_swaps": int(index._pending_swaps),
             "direct_hnsw_insertions": int(index.direct_hnsw_insertions),
             "op_counter": int(index._op_counter),
             "frontend": export_state(index.frontend),
-            "backend": export_hnsw_state(index.backend),
+            "backend": (export_svs_state if svs else export_hnsw_state)(index.backend),
         }
+        if svs:
+            state["training_threshold"] = int(index.training_threshold)
+            state["update_threshold"] = int(index.update_threshold)
+        return state
 
 
-def tiered_from_state(state: dict, *, device=None) -> TieredHNSWIndex:
-    """This package's ``TieredHNSWIndex`` on ``device`` (the current CUDA
-    device by default, the CPU only on request) holding the exported tiers,
-    with no job queue (jobs run inline)."""
+def tiered_from_state(state: dict, *, device=None):
+    """This package's ``TieredHNSWIndex`` or ``TieredSVSIndex`` on ``device``
+    (the current CUDA device by default, the CPU only on request) holding
+    the exported tiers, with no job queue (jobs run inline)."""
+    svs = "update_threshold" in state
+    bp = state["backend"]["params"]
+    primary = (
+        VecSimParams(algo=VecSimAlgo.SVS, svsParams=_svs_params(bp)) if svs
+        else VecSimParams(algo=VecSimAlgo.HNSWLIB, hnswParams=_hnsw_params(bp))
+    )
     params = TieredIndexParams(
-        primaryIndexParams=VecSimParams(
-            algo=VecSimAlgo.HNSWLIB, hnswParams=_hnsw_params(state["backend"]["params"])
-        ),
+        primaryIndexParams=primary,
         flatBufferLimit=state["flat_buffer_limit"],
         tieredHnswParams=TieredHNSWParams(swapJobThreshold=state["swap_job_threshold"]),
     )
-    index = TieredHNSWIndex(params, device=device)
-    index.backend = hnsw_from_state(state["backend"], device=index.device)
+    if svs:
+        params.tieredSVSParams = TieredSVSParams(
+            trainingTriggerThreshold=state["training_threshold"],
+            updateTriggerThreshold=state["update_threshold"],
+        )
+        index = TieredSVSIndex(params, device=device)
+        index.backend = svs_from_state(state["backend"], device=index.device)
+    else:
+        index = TieredHNSWIndex(params, device=device)
+        index.backend = hnsw_from_state(state["backend"], device=index.device)
     _fill_store(index.frontend.store, state["frontend"])
     _fill_labels(index.frontend, state["frontend"]["labels"])
     index._pending_swaps = state["pending_swaps"]
@@ -227,4 +308,10 @@ def tiered_from_state(state: dict, *, device=None) -> TieredHNSWIndex:
 def tiered_from_jax(index, *, device=None) -> TieredHNSWIndex:
     """A JAX package ``TieredHNSWIndex`` carried across to this package's;
     raises while its insert jobs are pending."""
+    return tiered_from_state(export_tiered_state(index), device=device)
+
+
+def tiered_svs_from_jax(index, *, device=None) -> TieredSVSIndex:
+    """A JAX package ``TieredSVSIndex`` carried across to this package's;
+    raises while a batch update is pending or mid-migration."""
     return tiered_from_state(export_tiered_state(index), device=device)

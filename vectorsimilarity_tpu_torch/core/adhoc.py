@@ -6,7 +6,9 @@ policy scores each filtered label directly instead of searching; the context
 holds the preprocessed query so repeated per-label scoring skips
 preprocessing, and ``get_exact_distances`` scores all requested labels in
 one device gather (``graph_search.dists_to_ids``) instead of a per-label
-loop. Serves the flat and the HNSW index.
+loop. Serves the flat, the HNSW and the SVS index: SVS's quantized stores
+carry the query metadata (sum y, sum y^2), and its two-level and LeanVec
+modes score through the index's re-rank decode (``exact_gathered_dists``).
 """
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ from ..ops.graph_search import StoreCtx, dists_to_ids
 class AdhocBfCtx:
     def __init__(self, index, query: np.ndarray):
         self.index = index
-        self._q, self._qn = index.preprocess_queries(np.asarray(query).reshape(1, -1))
+        pre = index.preprocess_queries(np.asarray(query).reshape(1, -1))
+        self._q, self._qn = pre[:2]
+        self._qm = pre[2] if len(pre) == 3 else None  # SVS: (q, q_norm, q_meta)
 
     def get_distance(self, label: int) -> float:
         """Min distance to the label's vectors; NaN if absent
@@ -38,15 +42,24 @@ class AdhocBfCtx:
         ids = np.full((len(labels), width), -1, dtype=np.int32)
         for r, lst in enumerate(ids_per_label):
             ids[r, : len(lst)] = lst
-        dev = index.store.device_arrays()
-        ctx = StoreCtx(data=dev["data"], sqnorm=dev.get("sqnorm"), norm=dev.get("norm"))
         n = len(labels)
-        q = index.to_device(self._q).expand(n, -1)
-        qn = None if self._qn is None else index.to_device(self._qn).expand(n)
-        d = dists_to_ids(
-            q, torch.from_numpy(ids).to(index.device), ctx,
-            metric=index.metric, kind=index.store_kind, q_norm=qn,
-        ).cpu().numpy()
+        if getattr(index, "res_bits", 0):
+            # Two-level / LeanVec SVS stores: the index's re-rank decode is
+            # the exact scoring surface (the primary store may live in a
+            # projected space the gather cannot score).
+            d = index.exact_gathered_dists(np.broadcast_to(self._q[0], (n, self._q.shape[1])), ids)
+        else:
+            dev = index.store.device_arrays()
+            ctx = StoreCtx(data=dev["data"], sqnorm=dev.get("sqnorm"), norm=dev.get("norm"),
+                           vmin=dev.get("vmin"), delta=dev.get("delta"))
+            q = index.to_device(self._q).expand(n, -1)
+            qn = None if self._qn is None else index.to_device(self._qn).expand(n)
+            qm = None if self._qm is None else tuple(
+                torch.from_numpy(np.asarray(m[0:1])).to(index.device).expand(n) for m in self._qm)
+            d = dists_to_ids(
+                q, torch.from_numpy(ids).to(index.device), ctx,
+                metric=index.metric, kind=index.store_kind, q_norm=qn, q_meta=qm,
+            ).cpu().numpy()
         best = d.min(axis=1)
         best[~np.isfinite(best)] = np.nan
         return best

@@ -1,5 +1,5 @@
-"""Tiered index: a flat frontend (fast writes) and an HNSW backend (fast
-reads), with host-side asynchronous ingestion.
+"""Tiered index: a flat frontend (fast writes) and an HNSW or SVS backend
+(fast reads), with host-side asynchronous ingestion.
 
 Counterpart of ``vectorsimilarity_tpu/indexes/tiered.py`` (reference:
 ``vec_sim_tiered_index.h:26-444`` + ``algorithms/hnsw/hnsw_tiered.h``). The
@@ -27,7 +27,9 @@ Both tiers keep their stores on one device: the current CUDA device by
 default, the CPU only on request. A job enters that device on the worker
 thread that runs it.
 
-The tiered SVS index is not ported yet (ROADMAP.md queue 1, item 3).
+The tiered SVS index (``tiered_svs.py``) keeps this class's frontend, reads,
+deletes and GC, and replaces the backend (``_make_backend``) and the write
+path (batch migrations at thresholds).
 """
 
 from __future__ import annotations
@@ -62,14 +64,15 @@ from .brute_force import BruteForceIndex
 from .factory import _with_defaults_hnsw
 from .hnsw import HNSWIndex
 
-# Job type (vec_sim_common.h:271-282): the GC runs inline, at the swap-job
-# threshold or by run_gc, so insert jobs are the only ones submitted.
+# Job types (vec_sim_common.h:271-282). Tiered HNSW's GC runs inline, at the
+# swap-job threshold or by run_gc, so its insert jobs are the only ones it
+# submits; tiered SVS submits batch updates.
 HNSW_INSERT_VECTOR_JOB = 0
+SVS_BATCH_UPDATE_JOB = 5
+SVS_GC_JOB = 6
 
 DEFAULT_PENDING_SWAP_JOBS_THRESHOLD = 1024
 MAX_PENDING_SWAP_JOBS_THRESHOLD = 100_000
-
-TIERED_SVS = "the tiered SVS index is not ported yet (ROADMAP.md queue 1, item 3: SVS-Vamana)"
 
 
 class AsyncJob:
@@ -94,8 +97,7 @@ class TieredHNSWIndex(VecSimIndexBase):
     def __init__(self, params: TieredIndexParams, log_ctx: Any = None, *, device=None):
         super().__init__(log_ctx)
         primary = params.primaryIndexParams
-        hp = _with_defaults_hnsw(primary.hnswParams)
-        self.backend = HNSWIndex(hp, primary.logCtx, device=device)
+        self.backend, hp = self._make_backend(primary, device)
         self.device = self.backend.device
         self.frontend = BruteForceIndex(
             BFParams(
@@ -135,6 +137,11 @@ class TieredHNSWIndex(VecSimIndexBase):
             # its job inserted (duplicate blobs are indistinguishable by
             # content; rows move under swap-with-last).
             self.frontend.store.add_field("opid", FieldSpec((), np.int64, fill=-1))
+
+    def _make_backend(self, primary, device):
+        """(backend index, its params) of ``primary``."""
+        hp = _with_defaults_hnsw(primary.hnswParams)
+        return HNSWIndex(hp, primary.logCtx, device=device), hp
 
     def _on_device(self):
         """The index's CUDA device as the current one (a worker thread
@@ -496,5 +503,7 @@ def create_tiered_index(params: TieredIndexParams, log_ctx: Any = None, *, devic
     if primary.algo == VecSimAlgo.HNSWLIB:
         return TieredHNSWIndex(params, log_ctx, device=device)
     if primary.algo == VecSimAlgo.SVS:
-        raise NotImplementedError(TIERED_SVS)
+        from .tiered_svs import TieredSVSIndex
+
+        return TieredSVSIndex(params, log_ctx, device=device)
     raise ValueError(f"tiered backend must be HNSW or SVS, got {primary.algo}")

@@ -1,9 +1,10 @@
-"""HNSW construction on the device, one insert batch at a time.
+"""HNSW and Vamana (SVS) construction on the device, one insert batch at a
+time.
 
-Counterpart of the HNSW part of ``vectorsimilarity_tpu/ops/graph_build.py``
-(the reference's ``insertElementToGraph``, ``mutuallyConnectNewElement`` and
+Counterpart of ``vectorsimilarity_tpu/ops/graph_build.py`` (the reference's
+``insertElementToGraph``, ``mutuallyConnectNewElement`` and
 ``revisitNeighborConnections``, ``hnsw.h:1548-1583``, ``:870-944``,
-``:781-868``). A batch of already-stored vectors is connected by:
+``:781-868``). An HNSW batch of already-stored vectors is connected by:
 
   - an upper-level descent, level by level (a host loop where the JAX
     package has a ``lax.scan``): the nodes living at a level run the
@@ -21,6 +22,11 @@ program's masks over inactive rows become row subsets here: a beam or prune
 runs only on the rows whose result is kept, which gives the same rows the
 same result (rows are independent). The only host reads are the loops'
 polls (``graph_search``) and the row subsets of the reverse-edge re-prune.
+
+A Vamana batch (``vamana_connect``) is the single-level case: a beam from
+the medoid entry, the intra-batch pairs, the prune with the robust-alpha
+rule, and the same reverse-edge pass with ``alpha``. Quantized stores are
+built from their primary-space decode (``anchor_queries``).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import numpy as np
 import torch
 
 from ..types import VecSimMetric
+from .quantize import unpack4
 from .graph_search import (
     StoreCtx,
     beam_search,
@@ -55,13 +62,22 @@ class GraphState:
 
 
 def anchor_queries(ctx: StoreCtx, ids: torch.Tensor, kind: str, metric):
-    """(q, q_norm) for stored rows used as distance anchors: the new node, or
-    the owner of a row being re-pruned."""
+    """(q, q_norm, q_meta) for stored rows used as distance anchors: the new
+    node, or the owner of a row being re-pruned. For the quantized kinds the
+    anchor is the primary-space decode of the stored codes, with (sum q,
+    sum q^2) recomputed: construction never sees the original float row, as
+    the reference's SVS build works on the compressed dataset."""
+    if kind in ("sq8", "sq4"):
+        codes = ctx.data[ids]
+        if kind == "sq4":
+            codes = unpack4(codes)
+        q = ctx.vmin[ids][:, None] + ctx.delta[ids][:, None] * codes.to(torch.float32)
+        return q, None, (torch.sum(q, dim=-1), torch.sum(q * q, dim=-1))
     q = ctx.data[ids]
     qn = None
     if kind == "int" and VecSimMetric(metric) == VecSimMetric.Cosine:
         qn = ctx.norm[ids]
-    return q, qn
+    return q, qn, None
 
 
 def _segment_ranks(key: torch.Tensor):
@@ -150,11 +166,12 @@ def apply_reverse_edges_device(
         old = links[r_rows]
         cand = torch.cat([old, newmat[seg_id[starts]]], dim=1)
         owner = dst_s[starts]
-        qv, qn = anchor_queries(ctx, torch.clamp(owner, min=0), kind, metric)
+        qv, qn, qm = anchor_queries(ctx, torch.clamp(owner, min=0), kind, metric)
         # A row never keeps its owner.
         cand = torch.where(cand == owner[:, None], -1, cand)
         pruned = diversity_prune_chunked(
             qv, cand, None, ctx, m=m_cap, metric=metric, kind=kind, alpha=alpha, q_norm=qn,
+            q_meta=qm,
         )
         links[r_rows] = pruned.to(links.dtype)
         nlinks[r_rows] = (pruned >= 0).sum(dim=1).to(nlinks.dtype)
@@ -223,7 +240,7 @@ def connect_batch(
     ids_t = torch.from_numpy(ids).to(dev)
     state.upper_row[ids_t] = torch.from_numpy(np.asarray(urows, dtype=np.int32)).to(dev)
 
-    q, qn = anchor_queries(ctx, ids_t, kind, metric)
+    q, qn, _ = anchor_queries(ctx, ids_t, kind, metric)
     has_graph = state.entry >= 0
     max_level = state.max_level
     cur = torch.full((n,), max(state.entry, 0), dtype=torch.int32, device=dev)
@@ -378,5 +395,114 @@ def build_scan(
         state, d = connect_batch(
             state, ctx, np.arange(off, off + n), lv, ur, **kw
         )
+        dropped.append(d)
+    return state, torch.stack(dropped)
+
+
+# ---------------------------------------------------------------------------
+# Vamana (SVS): single-level connect with alpha pruning
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class VamanaState:
+    """Device Vamana graph tensors threaded through construction; the
+    medoid entry is a host int."""
+
+    links: torch.Tensor  # [cap, R] int32, -1 padded
+    nlinks: torch.Tensor  # [cap] int32
+    entry: int  # medoid vector id (-1: empty graph)
+
+
+def vamana_connect(
+    state: VamanaState,
+    ctx: StoreCtx,
+    ids: np.ndarray,  # [n] int new-node row ids (contiguous ascending)
+    *,
+    L: int,  # construction window (beam ef)
+    deg: int,  # graph_max_degree R
+    metric: VecSimMetric,
+    kind: str,
+    alpha: float = 1.0,
+    a_cap: int = 16,
+    rev_passes: int = 2,
+    beam_expand: int = 4,
+):
+    """Insert one batch of already-stored rows into a Vamana graph: a
+    candidate beam from the medoid entry, the intra-batch pair distances,
+    the robust-alpha prune (DiskANN's rule, which also reaches every
+    overflowing reverse-edge row) and the sort-segment reverse edges.
+
+    The entry stays fixed during the batch (the caller refreshes the medoid
+    between batches); an empty graph adopts ``ids[0]``, and its first batch
+    connects through the pair distances alone. Updates ``state`` in place
+    and returns it with the dropped reverse-edge count (a device scalar)."""
+    metric = VecSimMetric(metric)
+    dev = state.links.device
+    ids = np.asarray(ids, dtype=np.int64)
+    n = len(ids)
+    cap = state.links.shape[0]
+    ids_t = torch.from_numpy(ids).to(dev)
+    ids32 = ids_t.to(torch.int32)
+    q, qn, qm = anchor_queries(ctx, ids_t, kind, metric)
+
+    if state.entry >= 0:
+        e = torch.full((n,), state.entry, dtype=torch.int32, device=dev)
+        ed = dists_to_ids(q, e[:, None], ctx, metric=metric, kind=kind, q_norm=qn,
+                          q_meta=qm)[:, 0]
+        bd, bi = beam_search(
+            q, ctx, state.links, None, e, ed, cap,
+            ef=L, metric=metric, kind=kind, q_norm=qn, q_meta=qm, expand=beam_expand,
+        )
+    else:
+        bd = torch.full((n, L), torch.inf, device=dev)
+        bi = torch.full((n, L), -1, dtype=torch.int32, device=dev)
+
+    eye = torch.eye(n, dtype=torch.bool, device=dev)
+    if n > 1:
+        pair = dists_to_ids(q, ids32[None, :].expand(n, n), ctx, metric=metric, kind=kind,
+                            q_norm=qn, q_meta=qm)
+        pair = torch.where(eye, torch.inf, pair)
+    else:
+        pair = torch.full((1, 1), torch.inf, device=dev)
+    ci = torch.cat([bi, torch.where(~eye, ids32[None, :], -1)], dim=1)
+    cd = torch.cat([bd, torch.where(~eye, pair, torch.inf)], dim=1)
+    sel = diversity_prune_chunked(
+        q, ci, cd, ctx, m=deg, metric=metric, kind=kind, alpha=alpha, q_norm=qn,
+    )
+    state.links[ids_t] = sel.to(state.links.dtype)
+    state.nlinks[ids_t] = (sel >= 0).sum(dim=1).to(state.nlinks.dtype)
+
+    # Reverse edges; pairs already mutual inside the batch are dropped.
+    base_id = int(ids[0])
+    dst = sel.reshape(-1)
+    src = ids32.repeat_interleave(deg)
+    in_batch = (dst >= base_id) & (dst < base_id + n)
+    row = torch.clamp(dst - base_id, 0, n - 1).long()
+    dup = (sel[row] == src[:, None]).any(dim=1) & in_batch
+    dst = torch.where(dup, -1, dst)
+    dropped = apply_reverse_edges_multi(
+        state.links, state.nlinks, dst, dst, src, ctx,
+        m_cap=deg, a_cap=a_cap, metric=metric, kind=kind, alpha=alpha, passes=rev_passes,
+    )
+    if state.entry < 0:
+        state.entry = base_id
+    return state, dropped
+
+
+def vamana_build_scan(
+    state: VamanaState,
+    ctx: StoreCtx,
+    offsets: np.ndarray,  # [T] first row id of each batch
+    *,
+    n: int,  # rows per batch
+    **kw,
+):
+    """Insert T consecutive Vamana batches (the JAX package's ``lax.scan``
+    over ``vamana_connect``, here a host loop with no read between
+    batches). Returns (state, dropped [T] device tensor)."""
+    dropped = []
+    for off in offsets:
+        state, d = vamana_connect(state, ctx, np.arange(off, off + n), **kw)
         dropped.append(d)
     return state, torch.stack(dropped)

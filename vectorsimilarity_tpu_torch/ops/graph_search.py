@@ -4,8 +4,10 @@ and diversity pruning.
 Counterpart of ``vectorsimilarity_tpu/ops/graph_search.py`` (the reference's
 ``greedySearchLevel``, ``searchLayer`` and ``getNeighborsByHeuristic2``,
 ``algorithms/hnsw/hnsw.h:1192``, ``:664-703``, ``:725-779``), for the
-``float`` and ``int`` store kinds. The loop bodies are the JAX package's,
-step for step; what changes is how a loop runs:
+``float``, ``int``, ``sq8`` and ``sq4`` store kinds (the last two are SVS's
+quantized stores, scored asymmetrically with the query metadata ``q_meta``).
+The loop bodies are the JAX package's, step for step; what changes is how a
+loop runs:
 
 - A ``lax.while_loop`` runs on the device until its condition reads false.
   Here the host drives the body over the whole batch: it launches up to
@@ -38,6 +40,7 @@ import torch
 
 from .. import config
 from ..types import VecSimMetric
+from .quantize import unpack4
 
 # Device-to-host reads made by the graph loops to learn which rows are done
 # (one per poll), and loop iterations launched, since the last reset; the
@@ -54,6 +57,12 @@ class StoreCtx(NamedTuple):
     kind="float": data [N, D] float; sqnorm [N] (L2 only, else None)
     kind="int":   data [N, D] int8/uint8; sqnorm [N] f32 (L2), norm [N] f32
                   (Cosine), else None
+    kind="sq8":   data [N, D] uint8 codes; vmin / delta [N] f32 scales;
+                  sqnorm [N] = sum x^2 (L2). Queries stay float and carry
+                  (sum y, sum y^2) as ``q_meta`` (asymmetric distance,
+                  spaces/IP/IP.cpp:35-71)
+    kind="sq4":   data [N, ceil(D/2)] split-packed 4-bit codes
+                  (``ops.quantize.pack4``); otherwise as sq8
 
     ``nav`` is an optional bf16 shadow of ``data`` (fp32 stores only): graph
     NAVIGATION gathers read it instead of the fp32 rows, half the bytes; the
@@ -64,6 +73,8 @@ class StoreCtx(NamedTuple):
     data: torch.Tensor
     sqnorm: Optional[torch.Tensor] = None
     norm: Optional[torch.Tensor] = None
+    vmin: Optional[torch.Tensor] = None
+    delta: Optional[torch.Tensor] = None
     nav: Optional[torch.Tensor] = None
 
 
@@ -79,13 +90,15 @@ def gathered_dists(
     metric: VecSimMetric,
     kind: str,
     q_norm: Optional[torch.Tensor] = None,
+    q_meta: Optional[tuple] = None,
 ) -> torch.Tensor:
     """Distances from per-query vectors to gathered rows.
 
     q: [B, D]; ids: [B, M] (valid row indices; mask afterwards). Returns
     [B, M] f32, with the algebra of ``ops.distances`` so beam scores match
     full-scan scores. Integer products are exact (an fp64 product of
-    integers below 2^53)."""
+    integers below 2^53). ``q_meta`` = (sum y [B], sum y^2 [B]) for the
+    quantized kinds."""
     metric = VecSimMetric(metric)
     if ctx.nav is not None and kind == "float":
         vecs = ctx.nav[ids]  # [B, M, D] bf16 shadow
@@ -96,6 +109,17 @@ def gathered_dists(
         qsq = torch.sum(qf * qf, dim=-1)
         return qsq[:, None] - 2.0 * ip + ctx.sqnorm[ids]
     vecs = ctx.data[ids]  # [B, M, D]
+    if kind in ("sq8", "sq4"):
+        if kind == "sq4":
+            vecs = unpack4(vecs)  # [B, M, 2H] codes in [0, 15]
+            if q.shape[-1] != vecs.shape[-1]:  # odd dim: zero-pad the query
+                q = torch.cat([q, q.new_zeros((q.shape[0], vecs.shape[-1] - q.shape[-1]))], 1)
+        ysum, ysumsq = q_meta
+        qdot = _bdot(q, vecs, torch.float32)
+        ip = ctx.vmin[ids] * ysum[:, None] + ctx.delta[ids] * qdot
+        if metric in (VecSimMetric.IP, VecSimMetric.Cosine):
+            return 1.0 - ip
+        return ctx.sqnorm[ids] - 2.0 * ip + ysumsq[:, None]
     if kind == "int":
         ip = _bdot(q, vecs, torch.float64).to(torch.float32)
         if metric == VecSimMetric.IP:
@@ -163,6 +187,7 @@ def greedy_level(
     metric: VecSimMetric,
     kind: str,
     q_norm: Optional[torch.Tensor] = None,
+    q_meta: Optional[tuple] = None,
 ):
     """Batched greedy hill-descent on one level until no query improves.
     Returns new (cur, cur_d); the inputs are not modified. The first read
@@ -180,7 +205,7 @@ def greedy_level(
             nbrs = nbrs_of(torch.where(imp, c, 0))  # [B, M]
             valid = (nbrs >= 0) & imp[:, None]
             safe = torch.where(valid, nbrs, 0)
-            nd = gathered_dists(q, safe, ctx, metric, kind, q_norm)
+            nd = gathered_dists(q, safe, ctx, metric, kind, q_norm, q_meta)
             nd = torch.where(valid, nd, torch.inf)
             j = torch.argmin(nd, dim=1, keepdim=True)
             best_d = nd.gather(1, j)[:, 0]
@@ -212,6 +237,7 @@ def beam_search(
     metric: VecSimMetric,
     kind: str,
     q_norm: Optional[torch.Tensor] = None,
+    q_meta: Optional[tuple] = None,
     max_iters: int = 0,
     expand: int = 1,
     init_state: Optional[tuple] = None,
@@ -315,7 +341,7 @@ def beam_search(
             visited = visited.scatter_add(1, word, torch.where(valid, 1 << shift, 0))
             blocks.append(torch.where(valid, safe, -1))
         new_i = torch.cat(blocks, dim=1) if E > 1 else blocks[0]
-        nd = gathered_dists(q, new_i.clamp(min=0), ctx, metric, kind, q_norm)
+        nd = gathered_dists(q, new_i.clamp(min=0), ctx, metric, kind, q_norm, q_meta)
         nd = torch.where(new_i >= 0, nd, torch.inf)
         # Merge: one stable sort on distance keeps beam entries ahead of equal
         # new candidates (searchLayer's tie behaviour).
@@ -385,7 +411,13 @@ def diversity_prune(
     safe = torch.where(valid, s_ids, 0)
     metric_v = VecSimMetric(metric)
 
-    v = ctx.data[safe].to(torch.float32)  # [B, c_eff, D]
+    v = ctx.data[safe]  # [B, c_eff, D]
+    if kind in ("sq8", "sq4"):
+        if kind == "sq4":
+            v = unpack4(v)
+        v = ctx.vmin[safe][:, :, None] + ctx.delta[safe][:, :, None] * v.to(torch.float32)
+    else:
+        v = v.to(torch.float32)
     if kind == "float" and ctx.nav is not None:
         # Caller distances may come from the bf16 shadow; recompute the
         # anchor->candidate leg exactly from the gathered fp32 rows so the
@@ -430,7 +462,7 @@ _PRUNE_CHUNK_BYTES = 1 << 30
 
 def diversity_prune_chunked(
     q, cand_ids, cand_dists, ctx, *, m, metric, kind, alpha=1.0, q_norm=None,
-    chunk_rows: Optional[int] = None,
+    q_meta=None, chunk_rows: Optional[int] = None,
 ):
     """``diversity_prune`` over many rows, ``chunk_rows`` at a time (by
     default as many as ``_PRUNE_CHUNK_BYTES`` of working set holds, at
@@ -439,11 +471,11 @@ def diversity_prune_chunked(
     give the unchunked result.
 
     ``cand_dists=None`` computes the anchor->candidate distances inside each
-    chunk (``dists_to_ids``), so the [rows, C, D] gather behind them is
-    chunked too."""
+    chunk (``dists_to_ids``, with ``q_meta`` for the quantized kinds), so
+    the [rows, C, D] gather behind them is chunked too."""
     B = q.shape[0]
     c_eff = min(cand_ids.shape[1], max(8 * m, 64))
-    D = ctx.data.shape[-1]
+    D = ctx.data.shape[-1] * (2 if kind == "sq4" else 1)
     C = cand_ids.shape[1] if cand_dists is None else 0
     per_row = 4 * c_eff * (2 * D + c_eff) + 4 * C * D
     chunk = chunk_rows or max(_PRUNE_CHUNK_BYTES // max(per_row, 1), 128)
@@ -452,8 +484,9 @@ def diversity_prune_chunked(
         sl = slice(s, s + chunk)
         qc, ci = q[sl], cand_ids[sl]
         qnc = None if q_norm is None else q_norm[sl]
+        qmc = None if q_meta is None else tuple(x[sl] for x in q_meta)
         cd = (
-            dists_to_ids(qc, ci, ctx, metric=metric, kind=kind, q_norm=qnc)
+            dists_to_ids(qc, ci, ctx, metric=metric, kind=kind, q_norm=qnc, q_meta=qmc)
             if cand_dists is None else cand_dists[sl]
         )
         parts.append(diversity_prune(
@@ -464,11 +497,12 @@ def diversity_prune_chunked(
     return torch.cat(parts) if len(parts) > 1 else parts[0]
 
 
-def dists_to_ids(q, ids, ctx: StoreCtx, *, metric, kind, q_norm=None) -> torch.Tensor:
+def dists_to_ids(q, ids, ctx: StoreCtx, *, metric, kind, q_norm=None,
+                 q_meta=None) -> torch.Tensor:
     """Masked distances from q[b] to ids[b, :] (-1 -> +inf)."""
     valid = ids >= 0
     safe = torch.where(valid, ids, 0)
-    d = gathered_dists(q, safe, ctx, metric, kind, q_norm)
+    d = gathered_dists(q, safe, ctx, metric, kind, q_norm, q_meta)
     return torch.where(valid, d, torch.inf)
 
 
@@ -482,7 +516,7 @@ def lex_sort(d: torch.Tensor, ids: torch.Tensor):
     return d1.gather(1, o2), i1.gather(1, o2)
 
 
-def exact_rerank(q, ids, ctx: StoreCtx, *, metric, kind, q_norm=None):
+def exact_rerank(q, ids, ctx: StoreCtx, *, metric, kind, q_norm=None, q_meta=None):
     """Re-score a result window exactly and re-sort by (distance, id).
 
     Traversal may rank candidates with the bf16 shadow
@@ -491,5 +525,5 @@ def exact_rerank(q, ids, ctx: StoreCtx, *, metric, kind, q_norm=None):
     lexicographically, so callers always see exact fp32 scores. Padded slots
     (id -1, d = +inf) sort last."""
     ctx = ctx._replace(nav=None)
-    d = dists_to_ids(q, ids, ctx, metric=metric, kind=kind, q_norm=q_norm)
+    d = dists_to_ids(q, ids, ctx, metric=metric, kind=kind, q_norm=q_norm, q_meta=q_meta)
     return lex_sort(d, ids)

@@ -69,7 +69,10 @@ def debug_info_iterator(index) -> list[InfoField]:
 
 def get_shared_memory() -> int:
     """``VecSim_GetSharedMemory``: process-wide allocations not owned by any
-    single index. Device memory is all index-owned; the only shared
-    allocation would be the SVS worker pool, which is not ported yet, so this
-    is 0."""
-    return 0
+    single index. Device memory is all index-owned, so this is the shared
+    SVS worker pool's bookkeeping (0 while no SVS index uses it)."""
+    from .thread_pool import SharedSVSThreadPool
+
+    if not SharedSVSThreadPool.is_initialized():
+        return 0
+    return SharedSVSThreadPool.instance().shared_allocation_size()
