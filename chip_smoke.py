@@ -911,14 +911,16 @@ def reply_labels(replies, k):
     return out
 
 
-def phase_hnsw(dev, smi, n=HNSW_N, writes=True):
+def phase_hnsw(dev, smi, n=HNSW_N, writes=True, keep=None):
     """Build the HNSW index on the card through the entry points a user
     calls, search it at each ef, and hold recall@10 against the port's exact
     flat index on the same rows (``search_knn_device``, kernel K1). Prints
     build seconds and vectors per second, QPS, recall and host reads per ef,
     and the peak device memory, each beside the card's name and power
     limit. With ``writes``, phase 8 (``phase_hnsw_writes``) runs on the same
-    index before it is freed. Returns {"build_s", "qps", "recall", ...}."""
+    index before it is freed. With a dict ``keep``, the index and its
+    queries stay alive in ``keep["hnsw"]`` for phase 12. Returns {"build_s",
+    "qps", "recall", ...}."""
     from vectorsimilarity_tpu_torch import api, config, create_index
     from vectorsimilarity_tpu_torch import types as T
     from vectorsimilarity_tpu_torch.ops import graph_search as gs
@@ -1004,6 +1006,8 @@ def phase_hnsw(dev, smi, n=HNSW_N, writes=True):
                              f"{out['recall'][200]:.4f} (host API {rec:.4f})")
     if writes:
         out["writes"] = phase_hnsw_writes(idx, queries, smi)
+    if keep is not None:
+        keep["hnsw"] = (idx, queries)
     del idx, rows, data, queries
     torch.cuda.empty_cache()
     return out
@@ -1303,7 +1307,7 @@ def _timed(fn, reps=3):
     return statistics.median(times), out
 
 
-def phase_svs(dev, smi, n=SVS_N, small_n=SVS_SMALL_N):
+def phase_svs(dev, smi, n=SVS_N, small_n=SVS_SMALL_N, keep=None):
     """Phase 10: build the Q4x8 SVS index on the card through the entry
     points a user calls (``create_index`` with no device,
     ``bulk_build_device``), search it per window with ``search_knn`` and
@@ -1312,7 +1316,9 @@ def phase_svs(dev, smi, n=SVS_N, small_n=SVS_SMALL_N):
     ``get_distance_from``; 64 eager deletes; then one build and one search
     per other mode at ``small_n`` rows. Prints build v/s and dropped
     back-edges, ms / QPS / recall per window, the re-rank's share, ms per
-    delete and the peak device memory. Returns {"build_s", ...}."""
+    delete and the peak device memory. With a dict ``keep``, the Q4x8 index
+    (after its deletes), its queries and its rows stay alive in
+    ``keep["svs"]`` for phase 12. Returns {"build_s", ...}."""
     from vectorsimilarity_tpu_torch import create_index
     from vectorsimilarity_tpu_torch.utils.synthetic import embedding_like
 
@@ -1391,6 +1397,8 @@ def phase_svs(dev, smi, n=SVS_N, small_n=SVS_SMALL_N):
     out["recall_deletes"] = _check_replies(
         idx.topk_query_batch(host, k, _ws_params(200)), truth, set(gone.tolist()),
         f"svs after the deletes: topk_query_batch B={BATCH} ws=200", smi, SVS_MIN_RECALL)
+    if keep is not None:
+        keep["svs"] = (idx, queries, data)
     del idx
     torch.cuda.empty_cache()
 
@@ -1531,6 +1539,265 @@ def phase_tiered_svs(dev, smi, n=TSVS_INGEST):
     return out
 
 
+# Phase 12: persistence on the card. The flat index is cut from the headline
+# 1M rows to 2^18 because "vstpu-v1" compresses on one host core.
+PERSIST_N = 262_144
+
+
+def _file_bytes(path):
+    if os.path.isdir(path):
+        return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    return os.path.getsize(path)
+
+
+def _timed_s(fn):
+    """(seconds, result) of one call, synchronized."""
+    ms, out = _timed(fn, 1)
+    return ms / 1e3, out
+
+
+def _same_replies(a, b, what):
+    """Two lists of replies hold the same labels and bit-equal distances."""
+    if len(a) != len(b) or any(not np.array_equal(x.ids, y.ids)
+                               or not np.array_equal(x.scores, y.scores) for x, y in zip(a, b)):
+        raise AssertionError(f"{what}: the reloaded index answers otherwise than the saved one")
+
+
+def phase_persist(dev, smi, flat_rows, queries, kept):
+    """Phase 12: save and load on the card. The flat index (``flat_rows``,
+    2^18 x 768 fp32 Cosine from the headline rows): ``save_index``, then
+    ``load_index`` with no device; at k = 10, 100 and 500 (B = 1024) the
+    reloaded index's ``search_knn_device`` gives exactly the saved index's
+    ids and distances, with every launch count set to 0 just before and read
+    just after: K1, K3 and K4 each on the tensor cores, no fallback. Phase
+    7's HNSW index (``kept["hnsw"]``): ``save_index`` / ``load_index``, and
+    a V4 file loaded with the store tensor already on the card as
+    ``device_data`` and without; each reload answers ``topk_query_batch``
+    at ef 200 with the saved index's labels and distances and the same
+    recall@10, and passes ``check_integrity``. Phase 10's Q4x8 index
+    (``kept["svs"]``): ``save_svs_folder``, then ``load_svs_folder`` into a
+    fresh index of the same params, held the same way at window 200 (and
+    through ``save_index`` / ``load_index``). Files go to a temporary
+    directory removed at the end; prints each file's bytes and each save's
+    and load's seconds."""
+    import shutil
+    import tempfile
+
+    from vectorsimilarity_tpu_torch import create_index
+    from vectorsimilarity_tpu_torch import types as T
+    from vectorsimilarity_tpu_torch.ops.kernels import bf_topk as bfk
+    from vectorsimilarity_tpu_torch.utils import hnsw_file_format as hff
+    from vectorsimilarity_tpu_torch.utils import svs_file_format as sff
+    from vectorsimilarity_tpu_torch.utils.serializer import check_integrity, load_index, save_index
+
+    k = 10
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_persist_")
+    out = {"flat": {}, "hnsw": {}, "svs": {}}
+
+    def record(what, kind, path, save_s, load_s):
+        out[what][kind] = {"bytes": _file_bytes(path), "save_s": save_s, "load_s": load_s}
+        print(f"# persist {what} {kind}: {_file_bytes(path)} bytes, save {save_s:.3f} s, load "
+              f"{load_s:.3f} s; card {smi}", flush=True)
+
+    def on_card(idx, what):
+        if idx.store.device.type != "cuda" or idx.store.device_arrays()["data"].device.type != "cuda":
+            raise AssertionError(f"{what}: the reloaded store is on {idx.store.device}")
+        if not check_integrity(idx):
+            raise AssertionError(f"{what}: check_integrity is false on the reload")
+
+    try:
+        # --- the flat index: kernels K1, K3, K4 on the reload ---
+        n = flat_rows.shape[0]
+        flat = create_index(T.VecSimParams(algo=T.VecSimAlgo.BF, bfParams=T.BFParams(
+            type=T.VecSimType.FLOAT32, dim=DIM, metric=T.VecSimMetric.Cosine)))
+        flat.add_vector_batch(flat_rows.cpu().numpy(), np.arange(n))
+        before = {kk: flat.search_knn_device(queries, kk) for kk in KS}
+        path = os.path.join(tmp, "flat.npz")
+        save_s, _ = _timed_s(lambda: save_index(flat, path))
+        load_s, back = _timed_s(lambda: load_index(path))
+        record("flat", "vstpu-v1", path, save_s, load_s)
+        on_card(back, "flat")
+        counters = ((bfk.group_min_scores, "tc_launches"), (bfk.group_min_scores, "launches"),
+                    (bfk.fused_topk, "tc_launches"), (bfk.fused_topk, "launches"),
+                    (bfk.tile_topc, "tc_launches"), (bfk.tile_topc, "launches"))
+        for w, attr in counters:
+            setattr(w, attr, 0)
+        bfk.topk_gm_exact.fallbacks = bfk.topk_bigk_exact.fallbacks = 0
+        after = {kk: back.search_knn_device(queries, kk) for kk in KS}
+        torch.cuda.synchronize()
+        names = ("gm_tc", "gm", "fused_tc", "fused", "topc_tc", "topc")
+        launches = {nm: getattr(w, attr) for nm, (w, attr) in zip(names, counters)}
+        fallbacks = bfk.topk_gm_exact.fallbacks + bfk.topk_bigk_exact.fallbacks
+        out["flat"].update(n=n, launches=launches, fallbacks=fallbacks)
+        print(f"# persist flat {n} x {DIM}: the reload's search_knn_device at k = {KS}, "
+              f"B={BATCH}: launches {launches}, fallbacks {fallbacks}; card {smi}", flush=True)
+        if not all(launches[e] for e in ("gm_tc", "fused_tc", "topc_tc")) or \
+                launches["gm"] or launches["fused"] or launches["topc"] or fallbacks:
+            raise AssertionError("the reloaded flat index did not answer through the "
+                                 "tensor-core K1, K3 and K4 alone")
+        for kk in KS:
+            (d0, i0), (d1, i1) = before[kk], after[kk]
+            if not (torch.equal(i0, i1) and torch.equal(d0, d1)):
+                raise AssertionError(f"flat reload at k={kk}: ids or distances differ")
+        print(f"# persist flat: ids and distances of the reload equal the saved index's, bit "
+              f"for bit, at k = {KS}; card {smi}", flush=True)
+        del flat, back, before, after
+
+        # --- HNSW: vstpu-v1 and the reference's V4 file ---
+        hidx, hq = kept.pop("hnsw")
+        host_q = hq.cpu().numpy()
+        qp = T.VecSimQueryParams()
+        qp.hnswRuntimeParams.efRuntime = 200
+        count = hidx.store.count
+        live = (hidx.store.host["flags"][:count] & 1) == 0
+        dev_data = hidx.store.device_arrays()["data"]
+        truth = exact_labels(dev_data[:count][torch.from_numpy(live).to(dev)],
+                             hidx.store.host["label"][:count][live], hq, k)
+        ref = hidx.topk_query_batch(host_q, k, qp)
+        rec = label_recall(reply_labels(ref, k), truth)
+        out["hnsw"].update(count=count, recall=rec)
+        path = os.path.join(tmp, "hnsw.npz")
+        save_s, _ = _timed_s(lambda: save_index(hidx, path))
+        load_s, back = _timed_s(lambda: load_index(path))
+        record("hnsw", "vstpu-v1", path, save_s, load_s)
+        reloads = [("vstpu-v1", back)]
+        path = os.path.join(tmp, "hnsw.v4")
+        save_s, _ = _timed_s(lambda: hff.save_hnsw_file(hidx, path))
+        load_s, back = _timed_s(lambda: hff.load_hnsw_file(path))
+        record("hnsw", "V4", path, save_s, load_s)
+        reloads.append(("V4", back))
+
+        def device_data(cap, n_rows, dim):
+            if dev_data.shape[0] >= cap:
+                return dev_data[:cap]
+            pad = torch.zeros((cap, dim), dtype=dev_data.dtype, device=dev)
+            pad[:n_rows] = dev_data[:n_rows]
+            return pad
+
+        load_s, back = _timed_s(lambda: hff.load_hnsw_file(path, device_data))
+        out["hnsw"]["V4 device_data"] = {"load_s": load_s}
+        print(f"# persist hnsw V4 with device_data (the store tensor on the card): load "
+              f"{load_s:.3f} s; card {smi}", flush=True)
+        reloads.append(("V4 device_data", back))
+        for kind, back in reloads:
+            on_card(back, f"hnsw {kind}")
+            got = back.topk_query_batch(host_q, k, qp)
+            _same_replies(got, ref, f"hnsw {kind}")
+            r = label_recall(reply_labels(got, k), truth)
+            if r != rec:
+                raise AssertionError(f"hnsw {kind}: recall {r} against {rec}")
+        print(f"# persist hnsw {count} x {DIM}: every reload answers topk_query_batch B={BATCH} "
+              f"ef=200 with the saved index's labels and distances, recall@10 {rec:.4f}; card "
+              f"{smi}", flush=True)
+        del hidx, reloads, back, dev_data
+
+        # --- SVS: the reference's folder, and vstpu-v1 ---
+        sidx, sq, rows = kept.pop("svs")
+        host_q = sq.cpu().numpy()
+        qp = _ws_params(200)
+        count = sidx.store.count
+        labels = np.sort(sidx.store.host["label"][:count])  # label i is row i of ``rows``
+        truth = exact_labels(rows[torch.from_numpy(labels).to(dev)], labels, sq, k)
+        ref = sidx.topk_query_batch(host_q, k, qp)
+        rec = label_recall(reply_labels(ref, k), truth)
+        out["svs"].update(count=count, recall=rec)
+        path = os.path.join(tmp, "svs")
+        save_s, _ = _timed_s(lambda: sff.save_svs_folder(sidx, path))
+        fresh = create_index(_svs_params(SVS_QUANT))
+        load_s, _ = _timed_s(lambda: sff.load_svs_folder(fresh, path))
+        record("svs", "folder", path, save_s, load_s)
+        reloads = [("folder", fresh)]
+        path = os.path.join(tmp, "svs.npz")
+        save_s, _ = _timed_s(lambda: save_index(sidx, path))
+        load_s, back = _timed_s(lambda: load_index(path))
+        record("svs", "vstpu-v1", path, save_s, load_s)
+        reloads.append(("vstpu-v1", back))
+        for kind, back in reloads:
+            on_card(back, f"svs {kind}")
+            got = back.topk_query_batch(host_q, k, qp)
+            _same_replies(got, ref, f"svs {kind}")
+            r = label_recall(reply_labels(got, k), truth)
+            if r != rec:
+                raise AssertionError(f"svs {kind}: recall {r} against {rec}")
+        print(f"# persist svs {SVS_QUANT} {count} x {DIM}: every reload answers topk_query_batch "
+              f"B={BATCH} ws=200 with the saved index's labels and distances, recall@10 "
+              f"{rec:.4f}; card {smi}", flush=True)
+        del sidx, reloads, back, fresh, rows
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+# Phase 13: the host-orchestrated builds (config.graph_build_device = False)
+# beside the device builds of the same rows.
+HOST_N, HOST_BATCH = 20_000, 1_024
+
+
+def phase_host_builds(dev, smi, n=HOST_N):
+    """Phase 13: HNSW (M = 16, efC = 200) and SVS (Q4x8, R = 32, L = 200),
+    each built from the same ``n`` x 768 fp32 Cosine rows by
+    ``add_vector_batch`` in batches of 1,024 with
+    ``config.graph_build_device`` off, then on (restored in a ``finally``).
+    Prints the vectors per second of every build and recall@10 against the
+    exact flat index (K1) at ef / window 200; the host builds must reach the
+    phase 7 / 10 floors and come within 0.08 of their device builds."""
+    from vectorsimilarity_tpu_torch import config, create_index
+    from vectorsimilarity_tpu_torch import types as T
+    from vectorsimilarity_tpu_torch.utils.synthetic import embedding_like
+
+    k = 10
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    rows = embedding_like(gen, n + BATCH, DIM)
+    data, queries = rows[:n], rows[n:]
+    host, host_q = data.cpu().numpy(), queries.cpu().numpy()
+    truth = exact_labels(data, np.arange(n), queries, k)
+    hnsw = T.VecSimParams(algo=T.VecSimAlgo.HNSWLIB, hnswParams=T.HNSWParams(
+        type=T.VecSimType.FLOAT32, dim=DIM, metric=T.VecSimMetric.Cosine, M=HNSW_M,
+        efConstruction=HNSW_EFC))
+    hq = T.VecSimQueryParams()
+    hq.hnswRuntimeParams.efRuntime = 200
+    cases = {"hnsw": (hnsw, hq, HNSW_MIN_RECALL), "svs": (_svs_params(SVS_QUANT),
+                                                           _ws_params(200), SVS_MIN_RECALL)}
+    out = {}
+    saved = config.graph_build_device
+    try:
+        for name, (params, qp, floor) in cases.items():
+            for on_device in (False, True):
+                config.graph_build_device = on_device
+                idx = create_index(params)
+                if idx.device.type != "cuda":
+                    raise AssertionError(f"create_index put the {name} index on {idx.device}")
+
+                def build():
+                    for off in range(0, n, HOST_BATCH):
+                        idx.add_vector_batch(host[off:off + HOST_BATCH],
+                                             list(range(off, min(off + HOST_BATCH, n))))
+
+                build_s, _ = _timed_s(build)
+                if idx._host_links_stale == (not on_device):
+                    raise AssertionError(f"{name}: the links are not where the build keeps them")
+                rec = label_recall(reply_labels(idx.topk_query_batch(host_q, k, qp), k), truth)
+                how = "device" if on_device else "host"
+                out[f"{name}_{how}"] = {"build_s": build_s, "vps": n / build_s, "recall": rec}
+                print(f"# {how} build {name} {n} x {DIM} fp32 Cosine, batches of {HOST_BATCH} "
+                      f"(config.graph_build_device={on_device}): {build_s:.1f} s, "
+                      f"{n / build_s:.1f} vectors/s, recall@10 {rec:.4f} at ef/ws 200; card "
+                      f"{smi}", flush=True)
+                del idx
+                torch.cuda.empty_cache()
+            host_rec, dev_rec = out[f"{name}_host"]["recall"], out[f"{name}_device"]["recall"]
+            if host_rec < floor or host_rec < dev_rec - 0.08:
+                raise AssertionError(f"{name} host build recall@10 {host_rec:.4f} (floor {floor}, "
+                                     f"device build {dev_rec:.4f})")
+    finally:
+        config.graph_build_device = saved
+    del rows, data, queries
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1573,6 +1840,7 @@ def main() -> int:
     # integer stores hold the fp32 rows scaled to the int8 range (uint8:
     # shifted by 128), their queries likewise, with the stored fp32 norms the
     # index keeps for Cosine.
+    flat_rows = store[:PERSIST_N].clone()  # phase 12's flat index
     scale = 127.0 / float(store.abs().max())
     quantize = lambda t, shift: (t * scale).round().clamp(-127, 127).add(shift)
     rows = []
@@ -1602,7 +1870,8 @@ def main() -> int:
     threading.excepthook = lambda a: (thread_errors.append(a),
                                       sys.__excepthook__(a.exc_type, a.exc_value,
                                                          a.exc_traceback))
-    hnsw = phase_hnsw(dev, smi)
+    kept = {}  # phase 7's HNSW and phase 10's SVS index, for phase 12
+    hnsw = phase_hnsw(dev, smi, keep=kept)
     print("# hnsw json " + json.dumps(hnsw), flush=True)
 
     # 9. The tiered HNSW index with its job queue.
@@ -1610,10 +1879,17 @@ def main() -> int:
     print("# tiered json " + json.dumps(tiered), flush=True)
 
     # 10. SVS-Vamana on the card; 11. the tiered SVS index.
-    svs = phase_svs(dev, smi)
+    svs = phase_svs(dev, smi, keep=kept)
     print("# svs json " + json.dumps(svs), flush=True)
     tiered_svs = phase_tiered_svs(dev, smi)
     print("# tiered svs json " + json.dumps(tiered_svs), flush=True)
+
+    # 12. Persistence on the card; 13. the host-orchestrated builds.
+    persist = phase_persist(dev, smi, flat_rows, queries, kept)
+    print("# persist json " + json.dumps(persist), flush=True)
+    del flat_rows
+    host_builds = phase_host_builds(dev, smi)
+    print("# host builds json " + json.dumps(host_builds), flush=True)
     if thread_errors:
         raise AssertionError(f"{len(thread_errors)} thread(s) raised: "
                              f"{[repr(a.exc_value) for a in thread_errors]}")

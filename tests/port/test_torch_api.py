@@ -8,13 +8,16 @@ params, top-k / range / batch iterator / distance entry points, hybrid
 queries in the ADHOC_BF and BATCHES policies with one predicate, the ad-hoc
 scoring context, the debug-info field iterator, the estimates, the default
 device, the tiered entry points on an index that is not tiered, and the
-entry points of what was not ported before the SVS slice: the SVS ones now
-work on the CPU, and what is still not ported (the host-orchestrated build)
-raises ``NotImplementedError`` naming its ``ROADMAP.md`` item. The JAX
-answers are computed once per index, in the module fixtures.
+entry points of what was not ported before the SVS and persistence slices:
+the SVS ones and the host-orchestrated build now work on the CPU (the host
+build gives the JAX package's graph row for row). The JAX answers are
+computed once per index, in the module fixtures.
 """
 
 import dataclasses
+import os
+import shutil
+import tempfile
 
 import numpy as np
 import pytest
@@ -24,11 +27,20 @@ import vectorsimilarity_tpu as jvs
 import vectorsimilarity_tpu.api as japi
 import vectorsimilarity_tpu_torch as tvs
 import vectorsimilarity_tpu_torch.api as tapi
-from torch_port_common import TOL, hnsw_params, jax_hnsw_index, unit_rows
+from torch_port_common import (
+    TOL,
+    assert_same_graph,
+    hnsw_params,
+    host_add,
+    jax_hnsw_index,
+    unit_rows,
+)
 from vectorsimilarity_tpu.core.hybrid import hybrid_topk as jhybrid
+from vectorsimilarity_tpu.utils import serializer as jser
 from vectorsimilarity_tpu_torch import config as tconfig
 from vectorsimilarity_tpu_torch.convert import hnsw_from_jax
 from vectorsimilarity_tpu_torch.core.hybrid import hybrid_topk as thybrid
+from vectorsimilarity_tpu_torch.utils import serializer as tser
 from vectorsimilarity_tpu_torch.utils.thread_pool import SharedSVSThreadPool
 
 N_BF, DIM_BF, K = 60, 8, 7
@@ -224,11 +236,20 @@ def _tiered_svs_params():
 
 
 def _host_build(idx):
-    saved, tconfig.graph_build_device = tconfig.graph_build_device, False
+    """An insert batch through the host-orchestrated construction, on
+    copies of the shared HNSW graph in both packages (carried by the
+    serializers): the same graph row for row after it."""
+    tmp = tempfile.mkdtemp()
     try:
-        idx.add_vector(np.zeros(16, np.float32), 10**6)
+        tser.save_index(idx, os.path.join(tmp, "hnsw.npz"))
+        port = tser.load_index(os.path.join(tmp, "hnsw.npz"), device="cpu")
+        ref = jser.load_index(os.path.join(tmp, "hnsw.npz"))
     finally:
-        tconfig.graph_build_device = saved
+        shutil.rmtree(tmp)
+    rows = unit_rows(np.random.default_rng(6), 4, idx.dim)
+    labels = [10**6 + i for i in range(4)]
+    assert host_add(port, tconfig, rows, labels) == host_add(ref, jvs.config, rows, labels) == 4
+    assert_same_graph(ref, port)
 
 
 def _pool_size(idx):
@@ -239,25 +260,20 @@ def _pool_size(idx):
         SharedSVSThreadPool.instance().reset_for_test()
 
 
-@pytest.mark.parametrize("call, raises", [
-    (_pool_size, False),
-    (lambda idx: tapi.VecSimIndex_New(tvs.VecSimParams(
-        algo=tvs.VecSimAlgo.SVS, svsParams=tvs.types.SVSParams(dim=8)), device="cpu"), False),
-    (lambda idx: tapi.VecSimIndex_New(_tiered_svs_params(), device="cpu"), False),
-    (lambda idx: tapi.VecSimIndex_EstimateElementSize(tvs.VecSimParams(
-        algo=tvs.VecSimAlgo.SVS, svsParams=tvs.types.SVSParams(dim=8))), False),
-    (lambda idx: tapi.VecSimIndex_EstimateInitialSize(_tiered_svs_params()), False),
-    (_host_build, True),
+@pytest.mark.parametrize("call", [
+    _pool_size,
+    lambda idx: tapi.VecSimIndex_New(tvs.VecSimParams(
+        algo=tvs.VecSimAlgo.SVS, svsParams=tvs.types.SVSParams(dim=8)), device="cpu"),
+    lambda idx: tapi.VecSimIndex_New(_tiered_svs_params(), device="cpu"),
+    lambda idx: tapi.VecSimIndex_EstimateElementSize(tvs.VecSimParams(
+        algo=tvs.VecSimAlgo.SVS, svsParams=tvs.types.SVSParams(dim=8))),
+    lambda idx: tapi.VecSimIndex_EstimateInitialSize(_tiered_svs_params()),
+    _host_build,
 ], ids=["pool_size", "svs", "tiered_svs", "svs_estimate", "tiered_svs_estimate", "host_build"])
-def test_not_ported_entry_points_raise(call, raises, hnsw):
-    """The SVS entry points are ported and work on the CPU; the host build
-    still raises, naming its ROADMAP.md item."""
-    _, _, _, tidx = hnsw
-    if raises:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item"):
-            call(tidx)
-    else:
-        call(tidx)
+def test_not_ported_entry_points_raise(call, hnsw):
+    """The SVS entry points and the host-orchestrated build are ported and
+    work on the CPU: none of these raises any more."""
+    call(hnsw[3])
 
 
 def test_tiered_entry_points_work_on_any_index(hnsw):

@@ -254,7 +254,7 @@ def test_default_device_needs_a_card():
 
 
 def test_port_imports_no_jax():
-    root = Path(__file__).resolve().parents[1]
+    root = Path(__file__).resolve().parents[2]
     files = sorted((root / "vectorsimilarity_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
     assert len(files) > 15
     banned = re.compile(r"^\s*(from|import)\s+(jax|vectorsimilarity_tpu)(\.|\s|$)", re.M)

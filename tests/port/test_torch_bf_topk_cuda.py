@@ -5,7 +5,7 @@ on the CPU for each store type and k band.
 Every test here needs an NVIDIA card and skips elsewhere. The file imports
 no JAX, so it also runs where JAX is not installed:
 
-    python -m pytest --noconftest -m cuda tests/test_torch_bf_topk_cuda.py -q
+    python -m pytest --noconftest -m cuda tests/port/test_torch_bf_topk_cuda.py -q
 
 (``--noconftest``: ``tests/conftest.py`` sets up JAX for the other files.)
 Float lanes: kernel and plain version both sum in fp32, in different orders

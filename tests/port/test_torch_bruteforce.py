@@ -18,7 +18,7 @@ import pytest
 
 import vectorsimilarity_tpu.types as jt
 import vectorsimilarity_tpu_torch.types as tt
-from torch_port_common import TOL, assert_replies_parity, unit_rows
+from torch_port_common import TOL, assert_replies_parity, assert_same_graph, host_add, unit_rows
 from vectorsimilarity_tpu import config as jconfig
 from vectorsimilarity_tpu.core.interface import VecSimIndexBase as JBase
 from vectorsimilarity_tpu.indexes.factory import create_index as jcreate
@@ -180,21 +180,25 @@ def test_convert_carries_a_jax_index_with_deletes(multi, small_tiles):
 
 
 def test_unported_algorithms_raise():
-    """Every algorithm is ported since the SVS slice: SVS and tiered SVS
-    build on the CPU; what is still not ported, their host-orchestrated
-    construction, raises naming its ROADMAP item."""
-    svs = tt.VecSimParams(algo=tt.VecSimAlgo.SVS, svsParams=tt.SVSParams(dim=DIM))
-    tiered_svs = tt.VecSimParams(algo=tt.VecSimAlgo.TIERED,
-                                 tieredParams=tt.TieredIndexParams(primaryIndexParams=svs))
-    saved, tconfig.graph_build_device = tconfig.graph_build_device, False
-    try:
-        for params in (svs, tiered_svs):
-            idx = tcreate(params, device="cpu")
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                (idx.backend if params is tiered_svs else idx).add_vector(
-                    np.zeros(DIM, np.float32), 1)
-    finally:
-        tconfig.graph_build_device = saved
+    """Every algorithm is ported, and since the persistence slice so is the
+    host-orchestrated construction: with ``config.graph_build_device`` off,
+    SVS and the tiered SVS backend build on the CPU, the same graph as the
+    JAX package's host build."""
+    rows = unit_rows(np.random.default_rng(8), 12, DIM)
+    for tiered in (False, True):
+        built = []
+        for types, create, cfg in ((jt, jcreate, jconfig), (tt, tcreate, tconfig)):
+            svs = types.VecSimParams(algo=types.VecSimAlgo.SVS,
+                                     svsParams=types.SVSParams(dim=DIM, graph_max_degree=8))
+            params = svs if not tiered else types.VecSimParams(
+                algo=types.VecSimAlgo.TIERED,
+                tieredParams=types.TieredIndexParams(primaryIndexParams=svs))
+            idx = create(params) if cfg is jconfig else create(params, device="cpu")
+            target = idx.backend if tiered else idx
+            assert host_add(target, cfg, rows, list(range(12))) == 12
+            built.append(target)
+        assert_same_graph(*built)
+        assert built[1].index_size == 12 and not built[1]._host_links_stale
 
 
 def _plain(x):

@@ -3,7 +3,7 @@
 Every test here needs an NVIDIA card and skips elsewhere. The file imports
 no JAX, so it also runs where JAX is not installed:
 
-    python -m pytest --noconftest -m cuda tests/test_torch_hnsw_cuda.py -q
+    python -m pytest --noconftest -m cuda tests/port/test_torch_hnsw_cuda.py -q
 
 A graph is built on the CPU and carried to the card (``convert``), and both
 copies answer the same queries: with the bf16 navigation shadow off, ids

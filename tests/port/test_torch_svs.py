@@ -42,23 +42,28 @@ from torch_port_common import (
     SVS_N,
     TOL,
     assert_replies_parity,
+    assert_same_graph,
     embedding_rows,
+    host_add,
     jax_svs_index,
     np_of,
     svs_build,
     svs_params,
 )
 from vectorsimilarity_tpu import api as japi
+from vectorsimilarity_tpu import config as jconfig
 from vectorsimilarity_tpu.core.adhoc import AdhocBfCtx as JAdhoc
 from vectorsimilarity_tpu.ops import graph_build as jgb
 from vectorsimilarity_tpu.ops import graph_search as jgs
 from vectorsimilarity_tpu.ops import quantize as jq
+from vectorsimilarity_tpu.utils import serializer as jser
 from vectorsimilarity_tpu_torch import api as tapi
 from vectorsimilarity_tpu_torch import config as tconfig
 from vectorsimilarity_tpu_torch.convert import export_svs_state, svs_from_jax, svs_from_state
 from vectorsimilarity_tpu_torch.core.adhoc import AdhocBfCtx as TAdhoc
 from vectorsimilarity_tpu_torch.ops import graph_build as tgb
 from vectorsimilarity_tpu_torch.ops import graph_search as tgs
+from vectorsimilarity_tpu_torch.utils import serializer as tser
 
 K = 10
 MODES = ["NONE", "Scalar", "Q4x8"]
@@ -371,21 +376,24 @@ def test_create_index_every_mode(mode):
             tvs.create_index(svs_params(tvs, mode))
 
 
-def test_multi_value_and_host_build():
-    """A multi-value index answers each label once; the host-orchestrated
-    build is not ported and raises."""
+def test_multi_value_and_host_build(tmp_path):
+    """A multi-value index answers each label once; after its deletes, the
+    host-orchestrated construction (``config.graph_build_device`` off)
+    inserts into its device-built graph as the JAX package's does into the
+    same graph (carried by the serializer): the same graph row for row."""
     x = embedding_rows(np.random.default_rng(7), 96, SVS_DIM)
     idx = tvs.create_index(svs_params(tvs, "Scalar", multi=True), device="cpu")
     idx.add_vector_batch(x, [i // 2 for i in range(96)])
     rep = idx.topk_query(x[10], 10)
     assert len(set(rep.ids.tolist())) == len(rep.ids) == 10 and int(rep.ids[0]) == 5
     assert idx.delete_vector(5) == 2 and 5 not in idx.topk_query(x[10], 10).ids.tolist()
-    saved, tconfig.graph_build_device = tconfig.graph_build_device, False
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 4"):
-            idx.add_vector(x[0], 1000)
-    finally:
-        tconfig.graph_build_device = saved
+    tser.save_index(idx, str(tmp_path / "svs.npz"))
+    jidx = jser.load_index(str(tmp_path / "svs.npz"))
+    y = embedding_rows(np.random.default_rng(8), 4, SVS_DIM)
+    assert host_add(idx, tconfig, y, [1000, 1000, 1001, 1002]) == 4
+    assert host_add(jidx, jconfig, y, [1000, 1000, 1001, 1002]) == 4
+    assert_same_graph(jidx, idx)
+    assert int(idx.topk_query(y[3], 1).ids[0]) == 1002
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             svs_from_state(export_svs_state(idx))

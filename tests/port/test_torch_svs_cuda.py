@@ -3,14 +3,14 @@
 Every test here needs an NVIDIA card and skips elsewhere. The file imports
 no JAX, so it also runs where JAX is not installed:
 
-    python -m pytest --noconftest -m cuda tests/test_torch_svs_cuda.py -q
+    python -m pytest --noconftest -m cuda tests/port/test_torch_svs_cuda.py -q
 
 - The ``sq8`` / ``sq4`` gathers and the two-layer re-rank on the card agree
   with the CPU's within 1e-5 on the same codes.
 - Codes computed on the card differ from the CPU's by at most one step, in
   at most 1 of 1,000 codes: a fused multiply-add on the card may round a
   code that sits at .5 the other way (the CPU's equal the JAX package's bit
-  for bit, ``tests/test_torch_quantize.py``).
+  for bit, ``tests/port/test_torch_quantize.py``).
 - A graph built on the CPU and carried to the card (``convert``) answers
   alike (labels equal, distances within 1e-5).
 - A 10,000-row build per ``quantBits`` mode on the card reaches the JAX

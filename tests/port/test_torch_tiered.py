@@ -27,7 +27,7 @@ import torch
 
 import vectorsimilarity_tpu as jvs
 import vectorsimilarity_tpu_torch as tvs
-from torch_port_common import assert_replies_parity
+from torch_port_common import assert_replies_parity, assert_same_graph, host_add
 from vectorsimilarity_tpu import api as japi
 from vectorsimilarity_tpu.utils.thread_pool import JobQueueThreadPool as JPool
 from vectorsimilarity_tpu_torch import api as tapi
@@ -378,10 +378,12 @@ def test_tiered_from_jax_refuses_pending_jobs():
 
 
 def test_tiered_svs_raises_and_the_default_device_is_the_card():
-    """Tiered SVS is ported (tests/test_torch_tiered_svs.py): it builds on
-    the CPU, and its host-orchestrated construction raises."""
+    """Tiered SVS is ported (tests/port/test_torch_tiered_svs.py): it builds
+    on the CPU, and its backend's host-orchestrated construction builds the
+    JAX package's graph row for row."""
     def params_of(pkg):
-        primary = pkg.VecSimParams(algo=pkg.VecSimAlgo.SVS, svsParams=pkg.SVSParams(dim=DIM))
+        primary = pkg.VecSimParams(algo=pkg.VecSimAlgo.SVS, svsParams=pkg.SVSParams(
+            dim=DIM, graph_max_degree=8))
         return pkg.VecSimParams(algo=pkg.VecSimAlgo.TIERED,
                                 tieredParams=pkg.TieredIndexParams(primaryIndexParams=primary))
 
@@ -389,12 +391,11 @@ def test_tiered_svs_raises_and_the_default_device_is_the_card():
     assert idx.backend.device.type == "cpu"
     assert tapi.VecSimIndex_EstimateElementSize(params_of(tvs)) == \
         japi.VecSimIndex_EstimateElementSize(params_of(jvs))
-    saved, tvs.config.graph_build_device = tvs.config.graph_build_device, False
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 4"):
-            idx.backend.add_vector(np.zeros(DIM, np.float32), 1)
-    finally:
-        tvs.config.graph_build_device = saved
+    jidx = jvs.create_index(params_of(jvs))
+    x = _rows(9, 16)
+    assert host_add(idx.backend, tvs.config, x, list(range(16))) == 16
+    assert host_add(jidx.backend, jvs.config, x, list(range(16))) == 16
+    assert_same_graph(jidx.backend, idx.backend)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tvs.create_index(_tiered_params(tvs))

@@ -4,7 +4,7 @@ sequences on the CPU.
 Every test here needs an NVIDIA card and skips elsewhere. The file imports
 no JAX, so it also runs where JAX is not installed:
 
-    python -m pytest --noconftest -m cuda tests/test_torch_tiered_cuda.py -q
+    python -m pytest --noconftest -m cuda tests/port/test_torch_tiered_cuda.py -q
 
 A graph built on the CPU is carried to the card (``convert``), and both
 copies take the same eager deletes, overwrites (at most 8 labels, and more:

@@ -1,4 +1,4 @@
-"""Shared helpers of the port's parity tests (``tests/test_torch_*.py``).
+"""Shared helpers of the port's parity tests (``tests/port/test_torch_*.py``).
 
 The JAX package is the reference. Both sides compute in fp32 on the CPU in
 different summation orders, so distances agree within ``TOL`` and ids agree
@@ -192,3 +192,35 @@ def jax_svs_index(quant: str):
     svs_build(idx, x, config)
     idx._ensure_host_links()
     return idx, x
+
+
+# ---------------------------------------------------------------------------
+# The host-orchestrated build (``config.graph_build_device = False``)
+# ---------------------------------------------------------------------------
+
+
+def host_add(idx, cfg, rows, labels):
+    """``add_vector_batch`` with ``cfg.graph_build_device`` off (the
+    host-orchestrated construction); returns its result."""
+    saved, cfg.graph_build_device = cfg.graph_build_device, False
+    try:
+        return idx.add_vector_batch(rows, labels)
+    finally:
+        cfg.graph_build_device = saved
+
+
+def assert_same_graph(jidx, tidx) -> None:
+    """The JAX and port graph indexes (HNSW or SVS) hold the same links,
+    labels and entry point, row for row."""
+    from vectorsimilarity_tpu_torch import convert
+
+    svs = hasattr(tidx, "R")
+    js, ts = ((convert.export_svs_state if svs else convert.export_hnsw_state)(i)
+              for i in (jidx, tidx))
+    names = ("label", "links", "nlinks") if svs else ("label", "level", "links0", "nlinks0")
+    for name in names:
+        assert np.array_equal(ts["arrays"][name], js["arrays"][name]), name
+    if not svs:
+        for name in ("links", "nlinks", "vec"):
+            assert np.array_equal(ts["upper"]["arrays"][name], js["upper"]["arrays"][name]), name
+    assert ts["entry_id"] == js["entry_id"] and ts["count"] == js["count"]

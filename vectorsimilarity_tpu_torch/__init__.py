@@ -16,26 +16,34 @@ tombstones. The tiered HNSW and tiered SVS indexes (a flat frontend and a
 graph backend with a job queue, ``utils/thread_pool.py``, which also holds
 the shared SVS worker pool). The query surface of all:
 ``api`` (the C API's entry points), ``query_params``, hybrid (filtered)
-queries and the ad-hoc scoring context. Stores live on the current CUDA
-device unless the caller passes ``device="cpu"``. The package imports torch
-and never jax.
+queries and the ad-hoc scoring context. Persistence
+(``utils/serializer.py``: the "vstpu-v1" file; ``utils/hnsw_file_format.py``:
+the reference's HNSW V3/V4 files; ``utils/svs_file_format.py``: SVS
+folders), the host-orchestrated graph builds (``config.graph_build_device =
+False``) and the reference's pybind11 class surface (``bindings``). Stores
+live on the current CUDA device unless the caller passes ``device="cpu"``.
+The package imports torch and never jax.
 """
 
 from .types import (  # noqa: F401
     DEFAULT_BLOCK_SIZE,
     BFParams,
     HNSWParams,
+    HNSWRuntimeParams,
     QueryReplyOrder,
     SVSParams,
+    SVSRuntimeParams,
     TieredHNSWParams,
     TieredIndexParams,
     TieredSVSParams,
     VecSearchMode,
     VecSimAlgo,
+    VecSimBool,
     VecSimIndexBasicInfo,
     VecSimIndexDebugInfo,
     VecSimIndexStatsInfo,
     VecSimMetric,
+    VecSimOptionMode,
     VecSimParams,
     VecSimQueryParams,
     VecSimQueryReplyCode,
@@ -47,8 +55,13 @@ from .types import (  # noqa: F401
 )
 from .core.interface import VecSimIndexBase  # noqa: F401
 from .core.results import QueryReply, filter_results_by_id, merge_replies  # noqa: F401
-from .indexes.factory import create_index  # noqa: F401
+from .indexes.factory import (  # noqa: F401
+    create_index,
+    estimate_element_size,
+    estimate_initial_size,
+)
 from .ops.normalize import normalize_blob as normalize  # noqa: F401
+from .query_params import resolve_params  # noqa: F401
 
 __version__ = "0.1.0"
 

@@ -123,9 +123,10 @@ def bigk_enabled(kind: str, k: int, capacity: int, dtype) -> bool:
 # same graph the same way.
 # ---------------------------------------------------------------------------
 
-# Connect each insert batch on the device (``graph_build.connect_batch``).
-# The host-orchestrated construction of the JAX package is not ported yet:
-# ``False`` raises (ROADMAP.md queue 1, item 4).
+# Connect each insert batch on the device (``graph_build.connect_batch``);
+# ``False`` takes the host-orchestrated construction (the indexes'
+# ``_connect_batch``: device beams and prunes, links and reverse edges
+# written on the host).
 graph_build_device: bool = True
 build_batch: int = 1024  # max rows per connect_batch call (a power of two)
 build_scan_batches: int = 4  # batches per ``build_scan`` call of a bulk build

@@ -70,6 +70,9 @@ class MultiLabelMap:
     def ids_of(self, label: int) -> list[int]:
         return sorted(self.label_to_ids.get(label, ()))
 
+    def slot_of_label(self, label: int) -> int:
+        return self.label_to_slot[label]
+
     def label_of_slot(self, slot: int) -> int:
         return self._slot_to_label[slot]
 
@@ -119,8 +122,9 @@ def rebuild_labels(index) -> None:
     """Refill ``index.labels`` (a fresh map) from the store's host columns:
     ``label``, ``slot`` for a multi-value index, and ``flags`` where the
     index keeps tombstones (a tombstoned row has no label entry). The JAX
-    package keeps this in ``utils/serializer.py`` (``_rebuild_labels``); the
-    port's bulk tombstone removal needs it before the serializer is ported."""
+    package keeps this in ``utils/serializer.py`` (``_rebuild_labels``); here
+    the serializer, the SVS folder loader and the bulk tombstone removal
+    share it."""
     count = index.store.count
     labels = index.store.host["label"][:count]
     flags = index.store.host.get("flags")

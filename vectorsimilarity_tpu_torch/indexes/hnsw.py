@@ -14,7 +14,12 @@ Queries run on the device: greedy descent over the upper levels
 (hnsw.h:1872-1886) then an ef-beam at level 0 (hnsw.h:1888-1940), see
 ``ops/graph_search.py``. Inserts connect whole batches on the device
 (``ops/graph_build.py``); the host keeps the label maps, level sampling and
-the entry point.
+the entry point. With ``config.graph_build_device = False`` a batch goes
+through the host-orchestrated construction instead (the JAX package's
+reference path): the candidate beams, pair distances and prunes still run
+on the device, but the chosen links are written into the host mirrors and
+the reverse edges appended there (``native_bridge.apply_reverse_edges``),
+overflowing rows re-pruned on the device.
 
 Deletion keeps the reference's in-place semantics (hnsw.h:946-1184):
 referrers are repaired by re-pruning over (their links + the deleted node's
@@ -24,10 +29,6 @@ arrays (``native_bridge.find_referrers``). Many tombstones go in one bulk
 pass (``delete_tombstoned_bulk``: one sweep, one grouped re-prune, and a
 compaction of both stores on the device). Overwriting a live label deletes
 its old row first.
-
-Not ported yet: the host-orchestrated construction
-(``config.graph_build_device = False``) raises ``NotImplementedError``
-(ROADMAP.md queue 1, item 4).
 """
 
 from __future__ import annotations
@@ -72,9 +73,6 @@ from ..types import (
 FLAG_DELETED = 1
 
 _INITIAL_LMAX = 4
-
-HOST_BUILD = ("host-orchestrated HNSW construction (config.graph_build_device = False) is not "
-              "ported yet (ROADMAP.md queue 1, item 4: persistence and the host build)")
 
 # At most this many overwritten labels of one insert batch are deleted one
 # by one; more are tombstoned and removed by one bulk pass.
@@ -315,8 +313,6 @@ class HNSWIndex(DeviceVectorIndex):
         Returns the number of new labels (single-value) or rows (multi)."""
         labels = [int(l) for l in labels]
         with self._lock:
-            if not config.graph_build_device:
-                raise NotImplementedError(HOST_BUILD)
             overwrite: list[int] = []
             if not self.multi:
                 overwrite = [l for l in labels if l in self.labels]
@@ -351,7 +347,10 @@ class HNSWIndex(DeviceVectorIndex):
                     self.labels.add(labels[i], node)
                 if levels[i] >= 1:
                     self._alloc_upper_row(node)
-            self._connect_batch_device(np.asarray(ids, dtype=np.int32), levels)
+            if config.graph_build_device:
+                self._connect_batch_device(np.asarray(ids, dtype=np.int32), levels)
+            else:
+                self._connect_batch(np.asarray(ids, dtype=np.int32), levels)
             return n - len(overwrite)
 
     def _connect_batch_device(self, ids: np.ndarray, levels: np.ndarray) -> None:
@@ -525,6 +524,166 @@ class HNSWIndex(DeviceVectorIndex):
                 self._connect_batch_device(
                     np.arange(tail_start, n, dtype=np.int32), levels[tail_start:]
                 )
+
+    # -- construction (host-orchestrated reference path) -----------------
+
+    def _connect_batch(self, ids: np.ndarray, levels: np.ndarray) -> None:
+        """Connect a batch of stored rows with the links chosen on the
+        device and written on the host (the JAX package's ``_connect_batch``):
+        a level-synchronous descent (the nodes living at a level run the
+        candidate beam, the others descend greedily), the level-0 beam, the
+        intra-batch pair distances, one prune for level 0 (to M0) and one per
+        upper level (to M), then the reverse edges on the host. The beams
+        step one candidate at a time (``searchLayer``), navigation reads the
+        exact rows, and the batch is not cut into power-of-two chunks."""
+        self._ensure_host_links()  # the links below are written on the host
+        prev_ep, prev_max = self.entry_id, self.max_level
+        n = len(ids)
+        dv = self.device
+        dev, udev, ctx = self._device_ctx()
+        batch_ids = np.asarray(ids, dtype=np.int32)
+        ids_t = torch.from_numpy(batch_ids).to(dv)
+        q, qn, _ = graph_build.anchor_queries(ctx, ids_t.long(), self.store_kind, self.metric)
+        kw = dict(metric=self.metric, kind=self.store_kind)
+        efc = self.ef_construction
+        cap = self.store.capacity
+
+        def sub(x, r):
+            return None if x is None else x[r]
+
+        # --- graph candidates (the batch's rows have no incoming links yet,
+        # so the graph cannot reach them) ---
+        b0d = torch.full((n, efc), torch.inf, device=dv)
+        b0i = torch.full((n, efc), -1, dtype=torch.int32, device=dv)
+        upper_cands: dict[tuple[int, int], tuple[np.ndarray, np.ndarray]] = {}
+        if prev_ep >= 0:
+            cur = torch.full((n,), prev_ep, dtype=torch.int32, device=dv)
+            cur_d = dists_to_ids(q, cur[:, None], ctx, q_norm=qn, **kw)[:, 0]
+            for lvl in range(prev_max, 0, -1):
+                beam_rows = np.nonzero(levels >= lvl)[0]
+                if len(beam_rows):
+                    r = torch.from_numpy(beam_rows).to(dv)
+                    bd, bi = beam_search(
+                        q[r], ctx, udev["links"], dev["upper_row"], cur[r], cur_d[r], cap,
+                        level=lvl, ef=efc, q_norm=sub(qn, r), **kw,
+                    )
+                    bi_np, bd_np = bi.cpu().numpy(), bd.cpu().numpy()
+                    for row, i in enumerate(beam_rows.tolist()):
+                        upper_cands[(i, lvl)] = (bi_np[row], bd_np[row])
+                    cur[r], cur_d[r] = bi[:, 0], bd[:, 0]
+                greedy = levels < lvl
+                if greedy.any():
+                    cur, cur_d = greedy_level(
+                        q, ctx, udev["links"], dev["upper_row"], cur, cur_d, level=lvl,
+                        active=torch.from_numpy(greedy).to(dv), q_norm=qn, **kw,
+                    )
+            b0d, b0i = beam_search(q, ctx, dev["links0"], None, cur, cur_d, cap, ef=efc,
+                                   q_norm=qn, **kw)
+
+        # --- intra-batch candidates: the exact [n, n] pair distances ---
+        if n > 1:
+            pair = dists_to_ids(q, ids_t[None, :].expand(n, n), ctx, q_norm=qn, **kw)
+            pair = torch.where(torch.eye(n, dtype=torch.bool, device=dv), torch.inf, pair)
+        else:
+            pair = torch.full((1, 1), torch.inf, device=dv)
+
+        # --- level 0: merge + prune for the whole batch ---
+        ci = torch.cat([b0i, ids_t[None, :].expand(n, n)], dim=1)
+        cd = torch.cat([b0d, pair], dim=1)
+        sel = diversity_prune_chunked(q, ci, cd, ctx, m=self.M0, q_norm=qn, **kw).cpu().numpy()
+        upper_rows = np.nonzero(levels >= 1)[0]
+        pair_np = pair[torch.from_numpy(upper_rows).to(dv)].cpu().numpy()
+        pair_row = {int(r): j for j, r in enumerate(upper_rows)}
+        self.store.host["links0"][batch_ids] = sel
+        self.store.host["nlinks0"][batch_ids] = (sel >= 0).sum(axis=1).astype(np.int32)
+        for node in batch_ids.tolist():
+            self.store.mark_dirty(node, "links0", "nlinks0")
+        valid = sel >= 0
+        pairs = np.column_stack(
+            [sel[valid], np.broadcast_to(batch_ids[:, None], sel.shape)[valid]]
+        ).astype(np.int32)
+        self._apply_reverse_edges_l0(pairs)
+
+        # --- upper levels: one prune per level ---
+        by_level: dict[int, list[tuple[int, np.ndarray, np.ndarray]]] = {}
+        for i, node in enumerate(batch_ids.tolist()):
+            for lvl in range(1, int(levels[i]) + 1):
+                gi, gd = upper_cands.get((i, lvl), (np.empty(0, np.int32),
+                                                    np.empty(0, np.float32)))
+                mask = levels >= lvl
+                mask[i] = False
+                c_i = np.concatenate([gi, batch_ids[mask]]).astype(np.int32)
+                c_d = np.concatenate([gd, pair_np[pair_row[i]][mask]]).astype(np.float32)
+                if len(c_i) == 0:
+                    self.set_links(node, lvl, [])
+                    continue
+                by_level.setdefault(lvl, []).append((i, c_i, c_d))
+        additions: dict[tuple[int, int], list[int]] = {}
+        for lvl, group in by_level.items():
+            # The candidate width keeps the JAX package's power-of-two padding.
+            C = pow2_bucket(max(len(c_i) for _, c_i, _ in group))
+            cand = np.full((len(group), C), -1, dtype=np.int32)
+            cand_d = np.full((len(group), C), np.inf, dtype=np.float32)
+            for g, (_, c_i, c_d) in enumerate(group):
+                cand[g, : len(c_i)] = c_i
+                cand_d[g, : len(c_i)] = c_d
+            r = torch.tensor([i for i, _, _ in group], dtype=torch.int64, device=dv)
+            s = diversity_prune_chunked(
+                q[r], torch.from_numpy(cand).to(dv), torch.from_numpy(cand_d).to(dv), ctx,
+                m=self.M, q_norm=sub(qn, r), **kw,
+            ).cpu().numpy()
+            for g, (i, _, _) in enumerate(group):
+                node = int(batch_ids[i])
+                chosen = [int(x) for x in s[g] if x >= 0]
+                self.set_links(node, lvl, chosen)
+                for nb in chosen:
+                    additions.setdefault((nb, lvl), []).append(node)
+        self._apply_reverse_edges(additions)
+
+        # --- entry point / max level (first occurrence of the highest level) ---
+        top = int(levels.max(initial=0))
+        if prev_ep < 0 or top > prev_max:
+            best = int(np.argmax(levels))
+            self.entry_id = int(batch_ids[best])
+            self.max_level = int(levels[best])
+
+    def _apply_reverse_edges_l0(self, pairs: np.ndarray) -> None:
+        """Level-0 back-edges (neighbour, node) of a whole batch, appended in
+        the host rows by ``native_bridge``; each row that overflows is
+        re-pruned over its links and its new back-edges."""
+        count = self.store.count
+        overflow, dirty = native_bridge.apply_reverse_edges(
+            self.store.host["links0"][:count], self.store.host["nlinks0"][:count], pairs)
+        for r in np.unique(dirty).tolist():
+            self.store.mark_dirty(r, "links0", "nlinks0")
+        if len(overflow):
+            over = set(overflow.tolist())
+            pending: dict[int, list[int]] = {}
+            for nb, node in pairs.tolist():
+                if nb in over:
+                    pending.setdefault(nb, []).append(node)
+            self._reprune_rows([
+                (nb, 0, list(dict.fromkeys(self.get_links(nb, 0) + fresh)))
+                for nb, fresh in pending.items()
+            ])
+
+    def _apply_reverse_edges(self, additions: dict[tuple[int, int], list[int]]) -> None:
+        """Add back-edges {(neighbour, level): new nodes}: appended where the
+        row has room, else the row is re-pruned over old + new (the
+        reference's ``revisitNeighborConnections``, hnsw.h:781-868)."""
+        overflow: list[tuple[int, int, list[int]]] = []
+        for (nb, lvl), new_ids in additions.items():
+            cur = self.get_links(nb, lvl)
+            cur_set = set(cur)
+            fresh = [x for x in dict.fromkeys(new_ids) if x not in cur_set and x != nb]
+            if not fresh:
+                continue
+            if len(cur) + len(fresh) <= (self.M0 if lvl == 0 else self.M):
+                self.set_links(nb, lvl, cur + fresh)
+            else:
+                overflow.append((nb, lvl, cur + fresh))
+        if overflow:
+            self._reprune_rows(overflow)
 
     # ------------------------------------------------------------------
     # Delete path (in place: repair + swap, hnsw.h:946-1184)

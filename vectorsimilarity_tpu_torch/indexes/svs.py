@@ -27,10 +27,15 @@ node's links) and remove the row by swap-with-last; referrers are found by
 scans of the host link arrays (``native_bridge.find_referrers``). A
 tombstone (``mark_delete``) stays traversable until removed.
 
-Not ported yet: the host-orchestrated construction
-(``config.graph_build_device = False``) raises ``NotImplementedError``
-(ROADMAP.md queue 1, item 4), and a query mesh with the deferred bulk build
-belongs to the sharded slice (item 5).
+With ``config.graph_build_device = False`` a batch goes through the
+host-orchestrated construction (the JAX package's reference path): the beam,
+pair distances and prune run on the device, the chosen links are written
+into the host mirrors and the reverse edges appended there
+(``native_bridge.apply_reverse_edges``), overflowing rows re-pruned on the
+device.
+
+Not ported yet: a query mesh with the deferred bulk build belongs to the
+sharded slice (ROADMAP.md queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -82,9 +87,6 @@ from ..types import (
 from ..utils.thread_pool import SharedSVSThreadPool
 
 FLAG_DELETED = 1
-
-HOST_BUILD = ("host-orchestrated SVS construction (config.graph_build_device = False) is not "
-              "ported yet (ROADMAP.md queue 1, item 4: persistence and the host build)")
 
 
 class SVSIndex(DeviceVectorIndex):
@@ -328,8 +330,6 @@ class SVSIndex(DeviceVectorIndex):
         number of new labels (single-value) or rows (multi)."""
         labels = [int(l) for l in labels]
         with self._lock:
-            if not config.graph_build_device:
-                raise NotImplementedError(HOST_BUILD)
             overwrite: list[int] = []
             if not self.multi:
                 overwrite = [l for l in labels if l in self.labels]
@@ -349,7 +349,10 @@ class SVSIndex(DeviceVectorIndex):
                     self.store.mark_dirty(node, "slot")
                 else:
                     self.labels.add(labels[i], node)
-            self._connect_batch_device(np.asarray(ids, dtype=np.int32))
+            if config.graph_build_device:
+                self._connect_batch_device(np.asarray(ids, dtype=np.int32))
+            else:
+                self._connect_batch(np.asarray(ids, dtype=np.int32))
             self._inserts_since_medoid += n
             if self.entry_id < 0 or self._inserts_since_medoid * 8 > self.store.count:
                 self._update_medoid()
@@ -515,6 +518,68 @@ class SVSIndex(DeviceVectorIndex):
             if pos * batch < n:
                 self._connect_batch_device(np.arange(pos * batch, n, dtype=np.int32))
             self._update_medoid()
+
+    def _connect_batch(self, ids: np.ndarray) -> None:
+        """Connect a batch of stored rows with the links chosen on the
+        device and written on the host (the JAX package's ``_connect_batch``):
+        a beam of the construction window from the medoid entry (one
+        candidate per step, ``searchLayer``), the intra-batch pair distances
+        and one robust-alpha prune for the whole batch, then the reverse
+        edges on the host. Quantized stores connect their primary-space
+        decode (``graph_build.anchor_queries``)."""
+        self._ensure_host_links()  # the links below are written on the host
+        n = len(ids)
+        dv = self.device
+        dev = self.store.device_arrays()
+        ctx = self._ctx(dev)
+        batch_ids = np.asarray(ids, dtype=np.int32)
+        ids_t = torch.from_numpy(batch_ids).to(dv)
+        q, qn, qm = graph_build.anchor_queries(ctx, ids_t.long(), self.store_kind, self.metric)
+        kw = dict(metric=self.metric, kind=self.store_kind, q_norm=qn)
+        L = self.L_build
+        beam_d = torch.full((n, L), torch.inf, device=dv)
+        beam_i = torch.full((n, L), -1, dtype=torch.int32, device=dv)
+        if self.entry_id >= 0:
+            e = torch.full((n,), self.entry_id, dtype=torch.int32, device=dv)
+            ed = dists_to_ids(q, e[:, None], ctx, q_meta=qm, **kw)[:, 0]
+            beam_d, beam_i = beam_search(q, ctx, dev["links"], None, e, ed,
+                                         self.store.capacity, ef=L, q_meta=qm, **kw)
+        if n > 1:
+            pair = dists_to_ids(q, ids_t[None, :].expand(n, n), ctx, q_meta=qm, **kw)
+            pair = torch.where(torch.eye(n, dtype=torch.bool, device=dv), torch.inf, pair)
+        else:
+            pair = torch.full((1, 1), torch.inf, device=dv)
+        ci = torch.cat([beam_i, ids_t[None, :].expand(n, n)], dim=1)
+        cd = torch.cat([beam_d, pair], dim=1)
+        sel = diversity_prune_chunked(q, ci, cd, ctx, m=self.R, alpha=self._prune_alpha,
+                                      **kw).cpu().numpy()
+        self.store.host["links"][batch_ids] = sel
+        self.store.host["nlinks"][batch_ids] = (sel >= 0).sum(axis=1).astype(np.int32)
+        for node in batch_ids.tolist():
+            self.store.mark_dirty(node, "links", "nlinks")
+        valid = sel >= 0
+        pairs = np.column_stack(
+            [sel[valid], np.broadcast_to(batch_ids[:, None], sel.shape)[valid]]
+        ).astype(np.int32)
+        self._apply_reverse_edges(pairs)
+
+    def _apply_reverse_edges(self, pairs: np.ndarray) -> None:
+        """Back-edges (neighbour, node) of a batch, appended in the host rows
+        by ``native_bridge``; each row that overflows is re-pruned over its
+        links and its new back-edges."""
+        count = self.store.count
+        overflow, dirty = native_bridge.apply_reverse_edges(
+            self.store.host["links"][:count], self.store.host["nlinks"][:count], pairs)
+        for r in np.unique(dirty).tolist():
+            self.store.mark_dirty(r, "links", "nlinks")
+        if len(overflow):
+            over = set(overflow.tolist())
+            pending: dict[int, list[int]] = {}
+            for nb, node in pairs.tolist():
+                if nb in over:
+                    pending.setdefault(nb, []).append(node)
+            self._reprune_rows([(nb, list(dict.fromkeys(self.get_links(nb) + fresh)))
+                                for nb, fresh in pending.items()])
 
     def _reprune_rows(self, rows: list[tuple[int, list[int]]]) -> None:
         """Robust-alpha re-prune of (node, candidates) rows on the device;
