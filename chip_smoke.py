@@ -112,6 +112,16 @@ check:
    after the GC, no deleted label answering, no thread raising. Prints
    vectors/s and QPS over the window, the migrations, K1's launches, the GC
    seconds and the peak device memory.
+12. Persistence on the card (``phase_persist``) and 13. the
+   host-orchestrated builds (``phase_host_builds``).
+14. Sharding over the one-card mesh ``[cuda:0] * 4`` (``phase_sharded``):
+   the sharded flat scan of the headline store in fp32 and int8, whose
+   K1, K3 and K4 must each launch once a shard (4 a batch) and whose
+   answers must equal the unsharded index's, also after 1,024 adds and
+   deletes across the shards; one sq8 scan against the plain one;
+   query-sharded HNSW at B = 1025; ``ShardedHNSW`` and ``ShardedVamana``
+   over 100,000 rows with recall floors 0.90 and 0.85, deletes and a save
+   and load. The kernel rows gain ``sharded_launches_per_batch``.
 
 Every timing line ends with the card's name and power limit. The script
 prints one JSON line of kernel results (one entry per kernel and lane) and,
@@ -1644,7 +1654,7 @@ def phase_persist(dev, smi, flat_rows, queries, kept):
         del flat, back, before, after
 
         # --- HNSW: vstpu-v1 and the reference's V4 file ---
-        hidx, hq = kept.pop("hnsw")
+        hidx, hq = kept["hnsw"]  # kept on for phase 14
         host_q = hq.cpu().numpy()
         qp = T.VecSimQueryParams()
         qp.hnswRuntimeParams.efRuntime = 200
@@ -1798,12 +1808,344 @@ def phase_host_builds(dev, smi, n=HOST_N):
     return out
 
 
+# Phase 14: multi-device sharding on the one card, the mesh [cuda:0] * 4
+# (one process, four shards that share the card's one copy of the rows).
+SHARDS = 4
+SHARD_WRITES = 1_024
+SHARDED_N = 100_000  # phase 7's rows, partitioned into one subgraph per shard
+SHARDED_WS = 200
+
+
+def _same_topk(d, i, rd, ri, what):
+    """(d, i) [Q, k] against (rd, ri), host numpy: distances within TOL, ids
+    equal except at slots whose reference distance lies within TOL of a
+    neighbouring slot's. Returns the max |distance difference|."""
+    d, i, rd, ri = (np.asarray(x) for x in (d, i, rd, ri))
+    if d.shape != rd.shape:
+        raise AssertionError(f"{what}: shapes {d.shape} and {rd.shape}")
+    err = float(np.abs(d.astype(np.float64) - rd).max()) if d.size else 0.0
+    if not err <= TOL:
+        raise AssertionError(f"{what}: distances off by {err:.3e}")
+    gap = np.abs(np.diff(rd.astype(np.float64), axis=1)) <= TOL
+    tied = np.zeros(d.shape, dtype=bool)
+    tied[:, 1:] |= gap
+    tied[:, :-1] |= gap
+    bad = (i != ri) & ~tied
+    if bad.any():
+        raise AssertionError(f"{what}: {int(bad.sum())} ids differ")
+    return err
+
+
+def _same_reply_lists(got, ref, what):
+    """Two lists of replies, reply by reply: the same length, labels and
+    distances as ``_same_topk``. Returns the max |distance difference|."""
+    if [len(r) for r in got] != [len(r) for r in ref]:
+        raise AssertionError(f"{what}: reply lengths differ")
+    return max(_same_topk(a.scores[None], a.ids[None], b.scores[None], b.ids[None], what)
+               for a, b in zip(got, ref))
+
+
+def _qps(fn, smi):
+    """(median QPS over 3 rounds of 2 batches, peak GiB allocated) of
+    ``fn(round_batch)``, synchronized."""
+    torch.cuda.reset_peak_memory_stats()
+    rounds = []
+    fn(0)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(0)
+        fn(1)
+        torch.cuda.synchronize()
+        rounds.append(2 * BATCH / (time.perf_counter() - t0))
+    return statistics.median(rounds), torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_sharded(dev, smi, kept, kernel_rows):
+    """Phase 14: sharding on the card over ``make_mesh([dev] * 4)``.
+
+    - The sharded flat scan: the headline store (made again from the seed)
+      in fp32 and in its int8 form (integer Cosine with query norms), each
+      adopted by a ``BruteForceIndex`` turned ``to_sharded`` (262,144 rows a
+      shard) and by an unsharded one. Per k in 10, 100, 500 with every count
+      at 0 just before: ``topk_query_batch`` and ``search_knn_device`` at B
+      = 1024, after which the k's tensor-core kernel (K1, K3, K4) must have
+      launched 4 times a batch (once a shard), no other kernel and no
+      fallback; the answers equal the unsharded index's and 32 queries the
+      float64 truth. fp32 then takes 1,024 adds and 1,024 deletes whose
+      swaps cross the shards, on both indexes: no deleted label answers,
+      and the answers equal again. QPS and peak memory of both beside each
+      other. One ``sharded_topk(kind="sq8")`` of the headline's SQ8 codes
+      against the plain unsharded ``streaming_topk`` over ``scores_sq8``.
+    - Query-sharded HNSW: phase 7's index (after phases 8 and 12)
+      ``to_query_sharded``, B = 1025 (padded to the mesh) at ef 200, equal to
+      the unsharded answers.
+    - ``ShardedHNSW`` (M = 16, efC = 200) and ``ShardedVamana`` (Scalar, R =
+      32, L = 200) over phase 7's 100,000 rows, each built by the deferred
+      round-robin ``bulk_build_device``: recall@10 at ef / window 200 (floors
+      0.90 and 0.85) against the exact flat index; ``ShardedHNSW`` takes 64
+      deletes (no deleted label answers) and a ``save`` / ``load`` with
+      equal replies.
+
+    Adds each kernel's sharded launches per batch to its row. Returns a
+    dict of the readings."""
+    import shutil
+    import tempfile
+
+    from vectorsimilarity_tpu_torch import ShardedHNSW, ShardedVamana, make_mesh
+    from vectorsimilarity_tpu_torch import types as T
+    from vectorsimilarity_tpu_torch.indexes.brute_force import BruteForceIndex
+    from vectorsimilarity_tpu_torch.ops.distances import streaming_topk
+    from vectorsimilarity_tpu_torch.ops.kernels import bf_topk as bfk
+    from vectorsimilarity_tpu_torch.ops.quantize import sq8_quantize
+    from vectorsimilarity_tpu_torch.parallel.sharding import sharded_topk
+    from vectorsimilarity_tpu_torch.utils.synthetic import embedding_like
+
+    t_phase = time.perf_counter()
+    default = make_mesh()
+    print(f"# sharding: make_mesh() takes {[str(d) for d in default.devices]}", flush=True)
+    mesh = make_mesh([dev] * SHARDS)
+    out = {"default_mesh": [str(d) for d in default.devices], "flat": {}}
+    torch.cuda.empty_cache()
+    store, queries = headline_store(dev)
+    counters = {"gm_tc": (bfk.group_min_scores, "tc_launches"),
+                "gm": (bfk.group_min_scores, "launches"),
+                "fused_tc": (bfk.fused_topk, "tc_launches"),
+                "fused": (bfk.fused_topk, "launches"),
+                "topc_tc": (bfk.tile_topc, "tc_launches"), "topc": (bfk.tile_topc, "launches")}
+    engine_of = dict(zip(KS, ("gm_tc", "fused_tc", "topc_tc")))
+
+    def flat(lane, data, norms):
+        idx = BruteForceIndex(T.BFParams(type=T.VecSimType[VTYPES[lane]], dim=DIM,
+                                         metric=T.VecSimMetric.Cosine))
+        idx.store.adopt_device({"data": data} if norms is None else {"data": data, "norm": norms},
+                               count=N)
+        idx.labels.label_to_id = dict(zip(range(N), range(N)))
+        idx.store.host["label"][:N] = np.arange(N, dtype=np.int64)
+        return idx
+
+    def compare(sh, ref, raw, q, qn, what):
+        err = 0.0
+        for k in KS:
+            (d, i), (rd, ri) = sh.search_knn_device(q, k, qn=qn), ref.search_knn_device(q, k, qn=qn)
+            err = max(err, _same_topk(d.cpu().numpy(), i.cpu().numpy(), rd.cpu().numpy(),
+                                      ri.cpu().numpy(), f"{what} search_knn_device k={k}"))
+            err = max(err, _same_reply_lists(sh.topk_query_batch(raw, k),
+                                             ref.topk_query_batch(raw, k),
+                                             f"{what} topk_query_batch k={k}"))
+        return err
+
+    scale = 127.0 / float(store.abs().max())
+    for lane in ("f32", "s8"):
+        t_lane = time.perf_counter()
+        if lane == "s8":
+            data = torch.cat([(c * scale).round().clamp(-127, 127).to(torch.int8)
+                              for c in store.split(1 << 17)])
+            raw_q = (queries * scale).round().clamp(-127, 127)
+            norms = int_norms(data)
+            ref = flat(lane, data, norms)  # read only: it shares the sharded index's rows
+        else:
+            data, raw_q, norms = store, queries, None
+            ref = flat(lane, store.clone(), None)  # the writes below go to both
+        sh = flat(lane, data, norms).to_sharded(mesh)
+        raw = raw_q.float().cpu().numpy().astype(sh.np_dtype)
+        q, qn = (sh.to_device(a) for a in sh.preprocess_queries(raw))
+        res = out["flat"][lane] = {"launches": {}}
+        for k in KS:
+            for w, attr in counters.values():
+                setattr(w, attr, 0)
+            bfk.topk_gm_exact.fallbacks = bfk.topk_bigk_exact.fallbacks = 0
+            sh.topk_query_batch(raw, k)
+            d, i = sh.search_knn_device(q, k, qn=qn)
+            torch.cuda.synchronize()
+            launches = {nm: getattr(w, attr) for nm, (w, attr) in counters.items()}
+            falls = bfk.topk_gm_exact.fallbacks + bfk.topk_bigk_exact.fallbacks
+            res["launches"][k] = launches
+            print(f"# sharded flat {lane} k={k}, 2 batches of {BATCH} over {SHARDS} shards: "
+                  f"launches {launches}, fallbacks {falls}", flush=True)
+            want = {nm: (2 * SHARDS if nm == engine_of[k] else 0) for nm in counters}
+            if launches != want or falls:
+                raise AssertionError(f"sharded flat {lane} k={k}: launches {launches}, fallbacks "
+                                     f"{falls}; want {want} and none")
+            for row in kernel_rows:
+                if row["name"] == f"{KERNELS[engine_of[k]][0]}_{lane}":
+                    row["sharded_launches_per_batch"] = launches[engine_of[k]] // 2
+            if k == KS[-1]:
+                rd, ri, s64 = exact_truth(q[:32], data, N, k + 1, norms,
+                                          None if qn is None else qn[:32])
+                for kk in KS:
+                    dd, ii = sh.search_knn_device(q[:32], kk, qn=None if qn is None else qn[:32])
+                    assert_knn(dd.cpu().numpy(), ii.cpu().numpy(), rd[:, :kk + 1], ri, s64)
+                del s64
+        res["max_abs_err_vs_unsharded"] = compare(sh, ref, raw, q, qn, f"sharded flat {lane}")
+        print(f"# sharded flat {lane}: answers equal the unsharded index's at k = {KS} "
+              f"(host API and device path; max |diff| {res['max_abs_err_vs_unsharded']:.3e}), "
+              f"32 queries the float64 exact top-k", flush=True)
+        qs, qns = [q, q.flip(0).contiguous()], [qn, None if qn is None else qn.flip(0).contiguous()]
+        res["qps"], res["unsharded_qps"] = {}, {}
+        for k in KS:
+            res["qps"][k], res["peak_gib"] = _qps(
+                lambda j: sh.search_knn_device(qs[j], k, qn=qns[j]), smi)
+            res["unsharded_qps"][k], res["unsharded_peak_gib"] = _qps(
+                lambda j: ref.search_knn_device(qs[j], k, qn=qns[j]), smi)
+            print(f"# sharded flat {lane} search_knn_device {N} x {DIM}, B={BATCH}, k={k}: "
+                  f"{res['qps'][k]:.1f} QPS over {SHARDS} shards, {res['unsharded_qps'][k]:.1f} "
+                  f"QPS unsharded; peak device memory {res['peak_gib']:.2f} / "
+                  f"{res['unsharded_peak_gib']:.2f} GiB; card {smi}", flush=True)
+        if lane == "f32":
+            gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+            new = embedding_like(gen, SHARD_WRITES, DIM).cpu().numpy()
+            gone = np.random.default_rng(SEED + 14).choice(N, SHARD_WRITES, replace=False)
+            t0 = time.perf_counter()
+            for idx in (sh, ref):
+                idx.add_vector_batch(new, list(range(N, N + SHARD_WRITES)))
+                for lab in gone:
+                    if idx.delete_vector(int(lab)) != 1:
+                        raise AssertionError(f"delete_vector({lab}) removed nothing")
+            res["writes_s"] = time.perf_counter() - t0
+            for r in sh.topk_query_batch(raw, KS[-1]):
+                if np.isin(r.ids, gone).any():
+                    raise AssertionError("a deleted label answered the sharded index")
+            compare(sh, ref, raw, q, qn, "sharded flat f32 after the writes")
+            print(f"# sharded flat f32: {SHARD_WRITES} adds and {SHARD_WRITES} deletes (swaps "
+                  f"across the shards) on both indexes in {res['writes_s']:.1f} s; no deleted "
+                  f"label answers, the answers equal the unsharded index's at k = {KS}; card "
+                  f"{smi}", flush=True)
+        del sh, ref, data, norms, q, qn, qs, qns
+        torch.cuda.empty_cache()
+        print(f"# sharded flat {lane} done in {time.perf_counter() - t_lane:.1f} s; card {smi}",
+              flush=True)
+
+    # sq8: the headline's codes, the sharded scan against the plain one.
+    metric = T.VecSimMetric.IP
+    codes = torch.zeros((CAP, DIM), dtype=torch.uint8, device=dev)
+    vmin = torch.zeros(CAP, device=dev)
+    delta = torch.ones(CAP, device=dev)
+    for lo in range(0, N, 1 << 17):
+        hi = min(lo + (1 << 17), N)
+        codes[lo:hi], vmin[lo:hi], delta[lo:hi] = sq8_quantize(store[lo:hi], with_sumsq=False)[:3]
+    del store
+    cols = (codes, vmin, delta, None)
+    k = KS[0]
+    sq_ms, (d, i) = _timed(lambda: sharded_topk(queries, cols, N, k, metric=metric, kind="sq8",
+                                                 mesh=mesh))
+    plain_ms, (rd, ri) = _timed(lambda: streaming_topk(queries, cols, N, k, metric=metric,
+                                                        kind="sq8", chunk=1 << 18))
+    err = _same_topk(d.cpu().numpy(), i.cpu().numpy(), rd.cpu().numpy(), ri.cpu().numpy(),
+                     "sharded sq8")
+    out["sq8"] = {"ms": sq_ms, "plain_ms": plain_ms, "max_abs_err": err}
+    print(f"# sharded_topk sq8 {N} x {DIM} IP, B={BATCH}, k={k}: {sq_ms:.2f} ms over {SHARDS} "
+          f"shards, the plain unsharded scan {plain_ms:.2f} ms, max |diff| {err:.3e}; card {smi}",
+          flush=True)
+    del codes, vmin, delta, cols, queries
+    torch.cuda.empty_cache()
+
+    # Query-sharded HNSW: phase 7's index, an odd batch cut over the mesh.
+    hidx, hq = kept.pop("hnsw")
+    host_q = np.concatenate([hq.cpu().numpy(), hq[:1].cpu().numpy()])  # 1025 queries
+    qp = T.VecSimQueryParams()
+    qp.hnswRuntimeParams.efRuntime = 200
+    one_ms, ref = _timed(lambda: hidx.topk_query_batch(host_q, 10, qp), 1)
+    hidx.to_query_sharded(mesh)
+    q_ms, got = _timed(lambda: hidx.topk_query_batch(host_q, 10, qp), 1)
+    hidx.to_query_sharded(None)
+    err = _same_reply_lists(got, ref, "query-sharded hnsw")
+    out["query_sharded_hnsw"] = {"ms": q_ms, "unsharded_ms": one_ms, "replicas": len(hidx._replicas)}
+    print(f"# query-sharded hnsw {hidx.store.count} x {DIM}, B={len(host_q)} (padded to "
+          f"{-(-len(host_q) // SHARDS) * SHARDS}) ef=200: {q_ms:.2f} ms in {SHARDS} slices, "
+          f"{one_ms:.2f} ms unsharded; the answers equal (max |diff| {err:.3e}), "
+          f"{len(hidx._replicas)} replicas made; card {smi}", flush=True)
+    if hidx._replicas:
+        raise AssertionError("a replica was made on the index's own device")
+    del hidx, hq, ref, got
+    torch.cuda.empty_cache()
+
+    # ShardedHNSW and ShardedVamana over phase 7's rows.
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = embedding_like(gen, SHARDED_N + BATCH, DIM)
+    data, queries = rows[:SHARDED_N], rows[SHARDED_N:]
+    host = queries.cpu().numpy()
+    truth = exact_labels(data, np.arange(SHARDED_N), queries, 10)
+    graphs = (
+        ("ShardedHNSW", ShardedHNSW, T.HNSWParams(
+            type=T.VecSimType.FLOAT32, dim=DIM, metric=T.VecSimMetric.Cosine, M=HNSW_M,
+            efConstruction=HNSW_EFC), HNSW_MIN_RECALL),
+        ("ShardedVamana", ShardedVamana, _svs_params("Scalar").svsParams, SVS_MIN_RECALL),
+    )
+    for name, cls, params, floor in graphs:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        idx = cls(params, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx.bulk_build_device(data)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        qpar = qp if name == "ShardedHNSW" else _ws_params(SHARDED_WS)
+        ms, replies = _timed(lambda: idx.topk_query_batch(host, 10, qpar))
+        rec = label_recall(reply_labels(replies, 10), truth)
+        res = out[name] = {"build_s": build_s, "build_vps": SHARDED_N / build_s, "ms": ms,
+                           "qps": BATCH * 1e3 / ms, "recall": rec,
+                           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                           "shard_rows": [s.store.count for s in idx.shards]}
+        print(f"# {name} {SHARDED_N} x {DIM} fp32 Cosine over {SHARDS} shards "
+              f"{res['shard_rows']}: deferred round-robin build {build_s:.1f} s "
+              f"({res['build_vps']:.1f} vectors/s); topk_query_batch B={BATCH} k=10 at "
+              f"{'ef' if name == 'ShardedHNSW' else 'window'} 200: {ms:.2f} ms "
+              f"({res['qps']:.1f} QPS), recall@10 {rec:.4f} (floor {floor}); peak device memory "
+              f"{res['peak_gib']:.2f} GiB; card {smi}", flush=True)
+        if rec < floor:
+            raise AssertionError(f"{name} recall@10 {rec:.4f} below {floor}")
+        if name == "ShardedHNSW":
+            gone = np.random.default_rng(SEED + 15).permutation(SHARDED_N)[:WRITE_EAGER]
+            for lab in gone:
+                if idx.delete_vector(int(lab)) != 1:
+                    raise AssertionError(f"ShardedHNSW delete_vector({lab}) removed nothing")
+            after = idx.topk_query_batch(host, 10, qp)
+            if any(np.isin(r.ids, gone).any() for r in after):
+                raise AssertionError("a deleted label answered ShardedHNSW")
+            tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+            try:
+                save_s, _ = _timed_s(lambda: idx.save(tmp))
+                load_s, back = _timed_s(lambda: ShardedHNSW.load(tmp, mesh))
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+            if [s.store.device for s in back.shards] != list(mesh.devices):
+                raise AssertionError("a loaded shard is not on its mesh device")
+            _same_replies(back.topk_query_batch(host, 10, qp), after, "ShardedHNSW reload")
+            res.update(save_s=save_s, load_s=load_s)
+            print(f"# ShardedHNSW: {WRITE_EAGER} deletes, no deleted label answers; save "
+                  f"{save_s:.3f} s, load {load_s:.3f} s, the reload's replies equal; card {smi}",
+                  flush=True)
+            del back, after
+        del idx, replies
+    del rows, data, queries
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"# phase 14 done in {out['seconds']:.1f} s; card {smi}", flush=True)
+    return out
+
+
+def headline_store(dev):
+    """The headline store (CAP x DIM fp32, the first N rows embedding-like
+    unit vectors, the rest zero) and its BATCH queries, from the seed: the
+    same tensors every time they are made."""
+    from vectorsimilarity_tpu_torch.utils.synthetic import embedding_like
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    store = torch.zeros((CAP, DIM), dtype=torch.float32, device=dev)
+    embedding_like(gen, N, DIM, out=store)
+    qgen = torch.Generator(device=dev).manual_seed(SEED + 100)
+    queries = embedding_like(gen, BATCH, DIM, latent_generator=qgen)
+    torch.cuda.synchronize()
+    return store, queries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from vectorsimilarity_tpu_torch.utils.synthetic import embedding_like
 
     dev = torch.device("cuda:0")
     smi = subprocess.run(
@@ -1819,12 +2161,7 @@ def main() -> int:
 
     # 2. The headline store, generated on the card.
     t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    store = torch.zeros((CAP, DIM), dtype=torch.float32, device=dev)
-    embedding_like(gen, N, DIM, out=store)
-    qgen = torch.Generator(device=dev).manual_seed(SEED + 100)
-    queries = embedding_like(gen, BATCH, DIM, latent_generator=qgen)
-    torch.cuda.synchronize()
+    store, queries = headline_store(dev)
     print(f"# store {N} x {DIM} fp32 cosine generated in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1890,6 +2227,10 @@ def main() -> int:
     del flat_rows
     host_builds = phase_host_builds(dev, smi)
     print("# host builds json " + json.dumps(host_builds), flush=True)
+
+    # 14. Sharding over the mesh [cuda:0] * 4.
+    sharded = phase_sharded(dev, smi, kept, rows)
+    print("# sharded json " + json.dumps(sharded), flush=True)
     if thread_errors:
         raise AssertionError(f"{len(thread_errors)} thread(s) raised: "
                              f"{[repr(a.exc_value) for a in thread_errors]}")

@@ -20,9 +20,15 @@ queries and the ad-hoc scoring context. Persistence
 (``utils/serializer.py``: the "vstpu-v1" file; ``utils/hnsw_file_format.py``:
 the reference's HNSW V3/V4 files; ``utils/svs_file_format.py``: SVS
 folders), the host-orchestrated graph builds (``config.graph_build_device =
-False``) and the reference's pybind11 class surface (``bindings``). Stores
-live on the current CUDA device unless the caller passes ``device="cpu"``.
-The package imports torch and never jax.
+False``) and the reference's pybind11 class surface (``bindings``).
+Multi-device scale-out (``parallel/``): a mesh is an ordered list of torch
+devices (``make_mesh``); the flat index row-shards its store over it
+(``BruteForceIndex.to_sharded``: each shard scanned on its device by the same
+kernels, one merge), the graph indexes cut query batches over it
+(``to_query_sharded``), and ``ShardedHNSW`` / ``ShardedVamana`` partition the
+dataset into one subgraph per device. Stores live on the current CUDA
+device unless the caller passes ``device="cpu"``. The package imports torch
+and never jax.
 """
 
 from .types import (  # noqa: F401
@@ -61,6 +67,8 @@ from .indexes.factory import (  # noqa: F401
     estimate_initial_size,
 )
 from .ops.normalize import normalize_blob as normalize  # noqa: F401
+from .parallel.sharded_graph import ShardedHNSW, ShardedVamana  # noqa: F401
+from .parallel.sharding import make_mesh  # noqa: F401
 from .query_params import resolve_params  # noqa: F401
 
 __version__ = "0.1.0"

@@ -35,6 +35,13 @@ mid-migration: their vectors are in neither tier's final place.
 ``TieredSVSIndex`` (with no job queue: its jobs run inline), and
 ``tiered_from_jax`` / ``tiered_svs_from_jax`` chain the two.
 
+``sharded_hnsw_from_jax`` / ``sharded_vamana_from_jax`` carry a JAX
+package's data-sharded graph index across onto a mesh of this package
+(``parallel.make_mesh``): each shard through ``hnsw_from_jax`` /
+``svs_from_jax`` onto its mesh device, with the label -> shard map and the
+round-robin cursor. A sharded flat index is ``bruteforce_from_state``
+followed by ``.to_sharded(mesh)``.
+
 Nothing here imports jax: a caller holding a JAX index hands it over, and
 only numpy comes back out of it.
 """
@@ -315,3 +322,26 @@ def tiered_svs_from_jax(index, *, device=None) -> TieredSVSIndex:
     """A JAX package ``TieredSVSIndex`` carried across to this package's;
     raises while a batch update is pending or mid-migration."""
     return tiered_from_state(export_tiered_state(index), device=device)
+
+
+def _sharded_from_jax(cls, index, mesh, shard_from_jax):
+    if mesh.size != len(index.shards):
+        raise ValueError(f"the index has {len(index.shards)} shards; the mesh {mesh.size}")
+    shards = [shard_from_jax(s, device=d) for s, d in zip(index.shards, mesh.devices)]
+    return cls._from_shards(shards, mesh, index._label_shard, index._rr)
+
+
+def sharded_hnsw_from_jax(index, mesh):
+    """A JAX package ``ShardedHNSW`` carried across to this package's, shard
+    i on ``mesh.devices[i]``."""
+    from .parallel.sharded_graph import ShardedHNSW
+
+    return _sharded_from_jax(ShardedHNSW, index, mesh, hnsw_from_jax)
+
+
+def sharded_vamana_from_jax(index, mesh):
+    """A JAX package ``ShardedVamana`` carried across to this package's,
+    shard i on ``mesh.devices[i]``."""
+    from .parallel.sharded_graph import ShardedVamana
+
+    return _sharded_from_jax(ShardedVamana, index, mesh, svs_from_jax)

@@ -106,6 +106,7 @@ class DeviceVectorIndex(VecSimIndexBase):
         if initial_capacity:
             self.store._resize(_bucket_capacity(initial_capacity, self.block_size))
         self.labels = MultiLabelMap() if self.multi else SingleLabelMap()
+        self._replicas: dict = {}  # device -> replica of the device tensors (_replica)
 
     # ------------------------------------------------------------------
     # Preprocessing (reference: preprocessors.h pipeline)
@@ -187,6 +188,71 @@ class DeviceVectorIndex(VecSimIndexBase):
         return (dev["data"], dev.get("sqnorm"))
 
     # ------------------------------------------------------------------
+    # Multi-device query-parallel serving (graph indexes)
+    # ------------------------------------------------------------------
+
+    _qmesh = None
+
+    def to_query_sharded(self, mesh):
+        """Serve every batch search with the query batch cut over ``mesh``
+        (``parallel.sharding.make_mesh``) and the graph replicated: slice i
+        is searched on the mesh's device i. The graph indexes' scale-out
+        axis: a proximity graph scales over QUERIES, while the flat scan
+        shards DATA rows (``BruteForceIndex.to_sharded``)."""
+        with self._lock:
+            self._qmesh = mesh
+        return self
+
+    def _maybe_shard_queries(self, search, qd, qn=None, qm=None, mesh=None):
+        """Run ``search(qd, qn, qm, device)`` over a device batch: whole, on
+        the index's device (``device`` None), without a mesh; with one
+        (``mesh``, else ``to_query_sharded``'s), padded to a multiple of the
+        mesh size with copies of its last query and cut into slices, slice i
+        searched on ``mesh.devices[i]``. Returns device (dists, ids) of the
+        original rows on the index's device. Rows are independent, so the
+        answers equal the unsharded search's."""
+        mesh = self._qmesh if mesh is None else mesh
+        if mesh is None:
+            return search(qd, qn, qm, None)
+        nq, S = qd.shape[0], mesh.size
+        pad = (-nq) % S
+
+        def padded(t):
+            if t is None or not pad:
+                return t
+            return torch.cat([t, t[-1:].expand(pad, *t.shape[1:])])
+
+        qd, qn = padded(qd), padded(qn)
+        qm = None if qm is None else tuple(padded(m) for m in qm)
+        w = qd.shape[0] // S
+        outs = []
+        for i, dev in enumerate(mesh.devices):
+            def part(t):
+                return None if t is None else t[i * w : (i + 1) * w].to(dev)
+
+            bd, bi = search(part(qd), part(qn), None if qm is None else tuple(map(part, qm)), dev)
+            outs.append((bd.to(self.device), bi.to(self.device)))
+        return (torch.cat([o[0] for o in outs])[:nq], torch.cat([o[1] for o in outs])[:nq])
+
+    def _replica(self, device, arrays: dict) -> dict:
+        """The index's device tensors ``arrays`` on ``device``: themselves
+        where ``device`` is the index's own, else copies, one set per
+        distinct device, made at first use and made again once any source
+        tensor changed (a mutation writes the store's tensors in place,
+        which bumps their version, or replaces them)."""
+        device = torch.device(device)
+        if device == self.device:
+            return arrays
+        # The cache keeps the source tensors alive, so their ids stay theirs.
+        key = {n: None if t is None else (id(t), t._version) for n, t in arrays.items()}
+        hit = self._replicas.get(device)
+        if hit is not None and hit[0] == key:
+            return hit[2]
+        copies = {n: None if t is None else t.to(device, copy=True) for n, t in arrays.items()}
+        self._replicas[device] = (key, dict(arrays), copies)
+        return copies
+
+    # ------------------------------------------------------------------
     # Host-side exact distance (GetDistanceFrom parity)
     # ------------------------------------------------------------------
 
@@ -236,7 +302,11 @@ class DeviceVectorIndex(VecSimIndexBase):
 
     @property
     def memory_bytes(self) -> int:
-        return self.store.memory_bytes
+        """The store's bytes and those of the query mesh's replicas."""
+        return self.store.memory_bytes + sum(
+            t.numel() * t.element_size()
+            for _, _, copies in self._replicas.values() for t in copies.values() if t is not None
+        )
 
     def contains_label(self, label: int) -> bool:
         return label in self.labels

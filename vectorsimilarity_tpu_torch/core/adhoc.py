@@ -6,7 +6,8 @@ policy scores each filtered label directly instead of searching; the context
 holds the preprocessed query so repeated per-label scoring skips
 preprocessing, and ``get_exact_distances`` scores all requested labels in
 one device gather (``graph_search.dists_to_ids``) instead of a per-label
-loop. Serves the flat, the HNSW and the SVS index: SVS's quantized stores
+loop; on a row-sharded flat index (``to_sharded``), one gather per shard,
+on the shard's device. Serves the flat, the HNSW and the SVS index: SVS's quantized stores
 carry the query metadata (sum y, sum y^2), and its two-level and LeanVec
 modes score through the index's re-rank decode (``exact_gathered_dists``).
 """
@@ -50,16 +51,36 @@ class AdhocBfCtx:
             d = index.exact_gathered_dists(np.broadcast_to(self._q[0], (n, self._q.shape[1])), ids)
         else:
             dev = index.store.device_arrays()
-            ctx = StoreCtx(data=dev["data"], sqnorm=dev.get("sqnorm"), norm=dev.get("norm"),
-                           vmin=dev.get("vmin"), delta=dev.get("delta"))
-            q = index.to_device(self._q).expand(n, -1)
-            qn = None if self._qn is None else index.to_device(self._qn).expand(n)
-            qm = None if self._qm is None else tuple(
-                torch.from_numpy(np.asarray(m[0:1])).to(index.device).expand(n) for m in self._qm)
-            d = dists_to_ids(
-                q, torch.from_numpy(ids).to(index.device), ctx,
-                metric=index.metric, kind=index.store_kind, q_norm=qn, q_meta=qm,
-            ).cpu().numpy()
+            cols = {f: dev.get(f) for f in ("data", "sqnorm", "norm", "vmin", "delta")}
+            mesh = getattr(index, "mesh", None)  # the row-sharded flat index
+            if mesh is None:
+                d = self._dists(StoreCtx(**cols), ids, index.device)
+            else:
+                # Each id is scored on the device of the shard that owns it.
+                d = np.full(ids.shape, np.inf, dtype=np.float32)
+                shard_n = cols["data"].shard_n
+                for s, device in enumerate(mesh.devices):
+                    lo = s * shard_n
+                    own = (ids >= lo) & (ids < lo + shard_n)
+                    if own.any():
+                        ctx = StoreCtx(**{f: None if c is None else c.shard(s)
+                                          for f, c in cols.items()})
+                        local = np.where(own, ids - lo, -1).astype(np.int32)
+                        d[own] = self._dists(ctx, local, device)[own]
         best = d.min(axis=1)
         best[~np.isfinite(best)] = np.nan
         return best
+
+    def _dists(self, ctx: StoreCtx, ids: np.ndarray, device) -> np.ndarray:
+        """Masked distances from the query to rows ``ids`` [n, width] of
+        ``ctx``'s tensors, which live on ``device``."""
+        n = ids.shape[0]
+        index = self.index
+        q = index.to_device(self._q).to(device).expand(n, -1)
+        qn = None if self._qn is None else index.to_device(self._qn).to(device).expand(n)
+        qm = None if self._qm is None else tuple(
+            torch.from_numpy(np.asarray(m[0:1])).to(device).expand(n) for m in self._qm)
+        return dists_to_ids(
+            q, torch.from_numpy(ids).to(device), ctx,
+            metric=index.metric, kind=index.store_kind, q_norm=qn, q_meta=qm,
+        ).cpu().numpy()

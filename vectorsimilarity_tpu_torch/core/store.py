@@ -11,6 +11,11 @@ compute. Unlike the JAX store, whose arrays are immutable and replaced on
 each sync, the sync here writes the device tensors IN PLACE (``copy_`` of
 the appended suffix, ``index_copy_`` of dirty rows and deferred moves): a
 dict returned by an earlier ``device_arrays`` call sees later syncs.
+
+``set_sharding(mesh)`` cuts the device copy into row shards over a list of
+devices (``ShardedRows``): shard s holds rows [s * N / S, (s + 1) * N / S)
+on the mesh's device s, and each row write lands in the shard that owns the
+row. ``set_device`` moves an unsharded store to another device.
 """
 
 from __future__ import annotations
@@ -45,6 +50,78 @@ def _to_device(rows: np.ndarray, device, dtype: torch.dtype) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(rows)).to(device, dtype, copy=True)
 
 
+class ShardedRows:
+    """A row-sharded [N, ...] tensor, the port's counterpart of a JAX array
+    placed ``P(AXIS, ...)`` over a mesh: shard s holds rows [s * n_s,
+    (s + 1) * n_s) on ``mesh.devices[s]``, n_s = N / S. Shards that follow
+    each other on one device are views of one tensor (a "block"), so a
+    device holds each of its rows once, however many shards it serves:
+    on ``[cuda:0] * 4`` the four shards are four views of one tensor."""
+
+    def __init__(self, mesh, blocks: list):
+        self.mesh = mesh
+        self.blocks = blocks  # [(lo, hi, tensor)], in row order, covering [0, N)
+        first = blocks[0][2]
+        self.shape = (blocks[-1][1], *first.shape[1:])
+        self.dtype = first.dtype
+        self.shard_n = self.shape[0] // mesh.size
+
+    @classmethod
+    def place(cls, t: torch.Tensor, mesh, *, copy: bool = False) -> "ShardedRows":
+        """``t`` [N, ...] cut over ``mesh``. Without ``copy``, the rows a
+        device already holds stay where they are (views of ``t``)."""
+        n, S = t.shape[0], mesh.size
+        if n % S:
+            raise ValueError(f"{n} rows do not divide over {S} shards")
+        w = n // S
+        return cls(mesh, [(s0 * w, s1 * w, t[s0 * w : s1 * w].to(dev, copy=copy))
+                          for dev, s0, s1 in mesh.runs()])
+
+    def shard(self, s: int) -> torch.Tensor:
+        """Shard ``s``'s rows, a view on its device."""
+        lo, hi = s * self.shard_n, (s + 1) * self.shard_n
+        for blo, bhi, t in self.blocks:
+            if blo <= lo < bhi:
+                return t[lo - blo : hi - blo]
+        raise IndexError(s)
+
+    def write_range(self, lo: int, hi: int, rows: torch.Tensor) -> None:
+        """Rows [lo, hi) = ``rows``, each block writing its part in place."""
+        for blo, bhi, t in self.blocks:
+            a, b = max(lo, blo), min(hi, bhi)
+            if a < b:
+                t[a - blo : b - blo].copy_(rows[a - lo : b - lo])
+
+    def write_rows(self, idx: torch.Tensor, rows: torch.Tensor) -> None:
+        """Rows ``idx`` (int64, on the CPU) = ``rows``: each row lands in the
+        shard that owns it."""
+        for blo, bhi, t in self.blocks:
+            mask = (idx >= blo) & (idx < bhi)
+            if bool(mask.any()):
+                t.index_copy_(0, (idx[mask] - blo).to(t.device), rows[mask].to(t.device))
+
+    def read_rows(self, idx: torch.Tensor) -> torch.Tensor:
+        """Rows ``idx`` (int64, on the CPU) gathered to the CPU."""
+        out = torch.empty((len(idx), *self.shape[1:]), dtype=self.dtype)
+        for blo, bhi, t in self.blocks:
+            mask = (idx >= blo) & (idx < bhi)
+            if bool(mask.any()):
+                out[mask] = t.index_select(0, (idx[mask] - blo).to(t.device)).cpu()
+        return out
+
+    def read_range(self, lo: int, hi: int) -> torch.Tensor:
+        """Rows [lo, hi) gathered to the CPU."""
+        parts = [t[max(lo, blo) - blo : min(hi, bhi) - blo].cpu()
+                 for blo, bhi, t in self.blocks if max(lo, blo) < min(hi, bhi)]
+        if not parts:
+            return torch.empty((0, *self.shape[1:]), dtype=self.dtype)
+        return torch.cat(parts)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for _, _, t in self.blocks)
+
+
 class FieldSpec:
     """One SoA field: trailing shape + dtype + pad value. The host mirror
     and the device copy hold the same type, unless ``device_dtype`` names
@@ -75,6 +152,7 @@ class BlockStore:
         self.fields = dict(fields)
         self.block_size = block_size or DEFAULT_BLOCK_SIZE
         self.device = torch.device(device)
+        self.mesh = None  # row-sharded over this mesh (``set_sharding``)
         self.count = 0
         self.capacity = 0
         self.host: dict[str, np.ndarray] = {}
@@ -208,11 +286,15 @@ class BlockStore:
         for name, mv in self._pending_moves.items():
             if not mv:
                 continue
-            dst = torch.tensor(list(mv.keys()), dtype=torch.int64, device=self.device)
-            src = torch.tensor(list(mv.values()), dtype=torch.int64, device=self.device)
+            dst = torch.tensor(list(mv.keys()), dtype=torch.int64)
+            src = torch.tensor(list(mv.values()), dtype=torch.int64)
             mv.clear()
             arr = self._device[name]
-            arr.index_copy_(0, dst, arr.index_select(0, src))
+            if isinstance(arr, ShardedRows):
+                arr.write_rows(dst, arr.read_rows(src))
+            else:
+                dst, src = dst.to(self.device), src.to(self.device)
+                arr.index_copy_(0, dst, arr.index_select(0, src))
 
     def device_arrays(self) -> dict[str, torch.Tensor]:
         """Return the device tensors, applying pending host mutations.
@@ -224,8 +306,7 @@ class BlockStore:
         self._flush_moves()
         if self._device_capacity != self.capacity:
             for name in self.fields:
-                self._device[name] = _to_device(self.host[name], self.device,
-                                                self.fields[name].torch_dtype)
+                self._device[name] = self._upload(self.host[name], self.fields[name].torch_dtype)
             self._device_capacity = self.capacity
             for dset in self._dirty_rows.values():
                 dset.clear()
@@ -235,9 +316,13 @@ class BlockStore:
         start = self._dirty_from
         if start < self.count:
             for name in self.fields:
-                chunk = _to_device(self.host[name][start : self.count], self.device,
-                                   self.fields[name].torch_dtype)
-                self._device[name][start : self.count].copy_(chunk)
+                arr, dtype = self._device[name], self.fields[name].torch_dtype
+                if isinstance(arr, ShardedRows):
+                    arr.write_range(start, self.count,
+                                    _to_device(self.host[name][start : self.count], "cpu", dtype))
+                else:
+                    arr[start : self.count].copy_(
+                        _to_device(self.host[name][start : self.count], self.device, dtype))
             for name, dset in self._dirty_rows.items():
                 self._dirty_rows[name] = {r for r in dset if r < start}
 
@@ -245,11 +330,50 @@ class BlockStore:
             if not dset:
                 continue
             idx = np.fromiter(dset, dtype=np.int64, count=len(dset))
-            rows = _to_device(self.host[name][idx], self.device, self.fields[name].torch_dtype)
-            self._device[name].index_copy_(0, torch.from_numpy(idx).to(self.device), rows)
+            arr, dtype = self._device[name], self.fields[name].torch_dtype
+            if isinstance(arr, ShardedRows):
+                arr.write_rows(torch.from_numpy(idx), _to_device(self.host[name][idx], "cpu", dtype))
+            else:
+                rows = _to_device(self.host[name][idx], self.device, dtype)
+                arr.index_copy_(0, torch.from_numpy(idx).to(self.device), rows)
             dset.clear()
         self._dirty_from = self.count
         return dict(self._device)
+
+    def _upload(self, host: np.ndarray, dtype: torch.dtype):
+        """A fresh device copy of a whole host column: one tensor on the
+        store's device, or ``ShardedRows`` over the mesh."""
+        if self.mesh is None:
+            return _to_device(host, self.device, dtype)
+        S = self.mesh.size
+        if host.shape[0] % S:
+            raise ValueError(f"capacity {host.shape[0]} does not divide over {S} shards")
+        w = host.shape[0] // S
+        return ShardedRows(self.mesh, [(s0 * w, s1 * w, _to_device(host[s0 * w : s1 * w], dev, dtype))
+                                       for dev, s0, s1 in self.mesh.runs()])
+
+    def set_sharding(self, mesh) -> None:
+        """Row-shard the device copy over ``mesh`` (the multi-device flat
+        scan): each field becomes ``ShardedRows``, shard s on
+        ``mesh.devices[s]``. The capacity must divide by the mesh size, and
+        every capacity bucket after growth is re-sharded. The synced device
+        copy is cut in place: rows already on their shard's device stay
+        where they are (no copy on a one-device mesh), the others are
+        copied to theirs, and device-authoritative fields stay so."""
+        if self.capacity % mesh.size:
+            raise ValueError(f"capacity {self.capacity} does not divide over {mesh.size} shards")
+        dev = self.device_arrays()
+        self.mesh = mesh
+        self._device = {n: ShardedRows.place(t, mesh) for n, t in dev.items()}
+
+    def set_device(self, device) -> None:
+        """Move the whole device copy to ``device`` (one shard's store of the
+        data-sharded graph indexes lives on its own device). Not for a
+        row-sharded store."""
+        if self.mesh is not None:
+            raise ValueError("the store is row-sharded")
+        self.device = torch.device(device)
+        self._device = {n: t.to(self.device) for n, t in self._device.items()}
 
     def adopt_device(self, arrays: dict[str, torch.Tensor], count: int) -> None:
         """Bulk-load device-resident data as the compute copy.
@@ -261,12 +385,17 @@ class BlockStore:
         ``pull_host`` or after the caller fills them. Missing fields get
         zeroed device tensors.
         """
+        if self.mesh is not None:
+            raise ValueError("adopt into an unsharded store, then set_sharding")
         cap = next(iter(arrays.values())).shape[0]
         if cap != _bucket_capacity(cap, self.block_size):
             raise ValueError(f"pad adopted arrays to a capacity bucket, got {cap} rows")
         for name, arr in arrays.items():
             spec = self.fields[name]
-            if arr.device != self.device or arr.dtype != spec.torch_dtype:
+            # A CPU tensor reports device "cpu" whatever CPU index it was
+            # moved to (a mesh may name "cpu:0", "cpu:1" as distinct devices).
+            on_cpu = arr.device.type == self.device.type == "cpu"
+            if (arr.device != self.device and not on_cpu) or arr.dtype != spec.torch_dtype:
                 raise ValueError(
                     f"field {name!r}: expected {spec.torch_dtype} on {self.device}, "
                     f"got {arr.dtype} on {arr.device}"
@@ -314,7 +443,8 @@ class BlockStore:
             spec = self.fields[name]
             keep = sorted(r for r in self._dirty_rows[name] if r < top)
             saved = self.host[name][keep].copy()
-            dev = self._device[name][:top]
+            arr = self._device[name]
+            dev = arr.read_range(0, top) if isinstance(arr, ShardedRows) else arr[:top]
             if dev.dtype == torch.bfloat16:
                 dev = dev.float()
             self.host[name][:top] = dev.cpu().numpy().astype(spec.dtype, copy=False)
@@ -332,5 +462,6 @@ class BlockStore:
     def memory_bytes(self) -> int:
         """Actual bytes held: host mirrors + device tensors."""
         host = sum(a.nbytes for a in self.host.values())
-        dev = sum(t.numel() * t.element_size() for t in self._device.values())
+        dev = sum(t.nbytes if isinstance(t, ShardedRows) else t.numel() * t.element_size()
+                  for t in self._device.values())
         return host + dev

@@ -11,7 +11,9 @@ Multi-value "best score per label"
 slots (``ops.topk``). Swap-with-last deletion, id/label maps, the
 ad-hoc-vs-batches decision tree (``brute_force.h:380-451``) and the
 compute-all-scores-once batch iterator (``bf_batch_iterator.h``) keep the
-reference's semantics. The row-sharded multi-GPU mode is not ported yet.
+reference's semantics. ``to_sharded(mesh)`` row-shards the store over a mesh
+of devices: each shard is scanned on its device by the same engines and the
+candidates merge on the first (``parallel.sharding.sharded_topk``).
 """
 
 from __future__ import annotations
@@ -46,6 +48,34 @@ from ..types import (
 _SCAN_CHUNK = 1 << 18
 
 
+def engine_topk(qd: torch.Tensor, data: torch.Tensor, aux: Optional[torch.Tensor], count: int,
+                k: int, *, metric, kind: str, query_norms: Optional[torch.Tensor] = None):
+    """Top-k of device queries over rows [0, count) of ``data`` (its length is
+    the capacity the gates see), by the engine the JAX index picks for this
+    k and store: group-min (K1), fused (K3), per-tile top-c (K4), else the
+    streaming scan. The fused and big-k gates see k rounded up to a power of
+    two, as there. Returns device (dists [B, k], row ids [B, k])."""
+    cap = data.shape[0]
+    tile_n = min(config.tile_n, cap)
+    kpad = min(pow2_bucket(k), cap)
+    chunk = max(min(_SCAN_CHUNK, cap), k)
+    if config.gm_enabled(kind, k, cap, data.dtype):
+        return topk_gm_exact(
+            qd, data, aux, count, k, metric=metric, kind=kind, tile_n=tile_n,
+            group_n=config.gm_group_n, slack=config.gm_slack, chunk=chunk,
+            query_norms=query_norms,
+        )
+    if config.fused_enabled(kind, kpad, cap, data.dtype):
+        return topk_fused(qd, data, aux, count, k, metric=metric, query_norms=query_norms)
+    if config.bigk_enabled(kind, kpad, cap, data.dtype):
+        return topk_bigk_exact(
+            qd, data, aux, count, k, metric=metric, kind=kind, tile_n=tile_n,
+            local_c=config.local_c, chunk=chunk, query_norms=query_norms,
+        )
+    return streaming_topk(qd, (data, aux), count, k, metric=metric, kind=kind, chunk=chunk,
+                          query_norms=query_norms)
+
+
 class BruteForceIndex(DeviceVectorIndex):
     """Flat index over a block store on ``device`` (single- or multi-value):
     the current CUDA device by default, the CPU only on request."""
@@ -62,6 +92,22 @@ class BruteForceIndex(DeviceVectorIndex):
             initial_capacity=params.initialCapacity,
         )
         self.params = params
+        self.mesh = None  # the row-sharded mode's mesh (to_sharded)
+
+    def to_sharded(self, mesh) -> "BruteForceIndex":
+        """Row-shard the store over ``mesh`` (``parallel.sharding.make_mesh``):
+        shard s's rows live on the mesh's device s, and top-k queries scan
+        every shard on its device with this index's engines and merge the
+        candidates on the first (``parallel.sharding.sharded_topk``). add /
+        delete keep full swap-with-last semantics: row writes land in the
+        shard that owns the row, and capacity growth re-shards.
+        Single-value only (the per-label slot scatter-min is not sharded)."""
+        if self.multi:
+            raise ValueError("sharded mode supports single-value indexes")
+        with self._lock:
+            self.mesh = mesh
+            self.store.set_sharding(mesh)
+        return self
 
     # ------------------------------------------------------------------
     # Write path
@@ -164,44 +210,26 @@ class BruteForceIndex(DeviceVectorIndex):
                 r.code = VecSimQueryReplyCode.TimedOut
         return out
 
-    def _chunk(self, k: int) -> int:
-        return max(min(_SCAN_CHUNK, self.store.capacity), k)
-
     def _search(self, qd: torch.Tensor, qn, dev: dict, k: int):
-        """Top-k of a preprocessed device batch over the synced store, by the
-        engine the JAX index picks for this k and store: group-min, fused,
-        per-tile top-c, else the streaming scan. The fused and big-k gates
-        see k rounded up to a power of two, as there. Returns device
-        (dists [B, k], row ids [B, k])."""
-        count, cap = self.store.count, self.store.capacity
-        kind, dtype = self.store_kind, self.store.fields["data"].torch_dtype
+        """Top-k of a preprocessed device batch over the synced store: the
+        sharded scan in the row-sharded mode, else ``engine_topk``. Returns
+        device (dists [B, k], row ids [B, k])."""
         data, aux = self.store_tuple(dev)
-        tile_n = min(config.tile_n, cap)
-        kpad = min(pow2_bucket(k), cap)
-        if config.gm_enabled(kind, k, cap, dtype):
-            return topk_gm_exact(
-                qd, data, aux, count, k, metric=self.metric, kind=kind, tile_n=tile_n,
-                group_n=config.gm_group_n, slack=config.gm_slack, chunk=self._chunk(k),
-                query_norms=qn,
-            )
-        if config.fused_enabled(kind, kpad, cap, dtype):
-            return topk_fused(qd, data, aux, count, k, metric=self.metric, query_norms=qn)
-        if config.bigk_enabled(kind, kpad, cap, dtype):
-            return topk_bigk_exact(
-                qd, data, aux, count, k, metric=self.metric, kind=kind, tile_n=tile_n,
-                local_c=config.local_c, chunk=self._chunk(k), query_norms=qn,
-            )
-        return streaming_topk(
-            qd, (data, aux), count, k, metric=self.metric,
-            kind=kind, chunk=self._chunk(k), query_norms=qn,
-        )
+        if self.mesh is not None:
+            from ..parallel.sharding import sharded_topk
+
+            return sharded_topk(qd, (data, aux), self.store.count, k, metric=self.metric,
+                                kind=self.store_kind, mesh=self.mesh, query_norms=qn)
+        return engine_topk(qd, data, aux, self.store.count, k, metric=self.metric,
+                           kind=self.store_kind, query_norms=qn)
 
     def search_knn_device(self, qd: torch.Tensor, k: int, *, qn=None):
         """Device-tensor top-k for device-resident query pipelines: ``qd``
-        [B, dim] must be on the store's device and already preprocessed
-        (normalized for float cosine; ``qn`` = query norms for int cosine).
-        Returns DEVICE (dists [B, k'], ids [B, k']) with row ids, not labels,
-        where k' = min(k, count)."""
+        [B, dim] must be on the store's device (in the row-sharded mode, any
+        device) and already preprocessed (normalized for float cosine;
+        ``qn`` = query norms for int cosine). Returns DEVICE (dists [B, k'],
+        ids [B, k']) with row ids, not labels, where k' = min(k, count); in
+        the row-sharded mode on the mesh's first device."""
         with self._lock:
             k = min(k, max(self.store.count, 1))
             return self._search(qd, qn, self.store.device_arrays(), k)
@@ -210,7 +238,7 @@ class BruteForceIndex(DeviceVectorIndex):
         kk = min(k, self.store.count)
         dev = self.store.device_arrays()
         qd, qn = self.to_device(q), self.to_device(qnorms)
-        if budget is not None and budget.ctx is not None:
+        if budget is not None and budget.ctx is not None and self.mesh is None:
             # Segmented scan with a timeout poll between segments — the
             # in-flight analog of the reference's per-vector VECSIM_TIMEOUT
             # check (brute_force.h:265). Stops with partial results (a
@@ -289,18 +317,24 @@ class BruteForceIndex(DeviceVectorIndex):
         return out
 
     def _scores_one(self, query: np.ndarray):
-        """(scores [N] on the device, synced device tensors) of one query."""
+        """(scores [1, N] on the device, synced device tensors) of one query.
+        In the row-sharded mode each shard scores its rows on its device and
+        the scores are gathered on the mesh's first device."""
         q, qnorms = self.preprocess_queries(np.asarray(query).reshape(1, -1))
         dev = self.store.device_arrays()
-        scores = full_scores(
-            self.to_device(q),
-            self.store_tuple(dev),
-            self.store.count,
-            metric=self.metric,
-            kind=self.store_kind,
-            query_norms=self.to_device(qnorms),
-        )
-        return scores, dev
+        qd, qn = self.to_device(q), self.to_device(qnorms)
+        if self.mesh is None:
+            return full_scores(qd, self.store_tuple(dev), self.store.count, metric=self.metric,
+                               kind=self.store_kind, query_norms=qn), dev
+        parts, cols = [], self.store_tuple(dev)
+        shard_n = cols[0].shard_n
+        for s, d in enumerate(self.mesh.devices):
+            live = max(0, min(self.store.count - s * shard_n, shard_n))
+            sc = full_scores(qd.to(d), tuple(None if c is None else c.shard(s) for c in cols), live,
+                             metric=self.metric, kind=self.store_kind,
+                             query_norms=None if qn is None else qn.to(d))
+            parts.append(sc.to(self.mesh.devices[0]))
+        return torch.cat(parts, dim=1), dev
 
     def range_query(
         self,

@@ -29,6 +29,11 @@ arrays (``native_bridge.find_referrers``). Many tombstones go in one bulk
 pass (``delete_tombstoned_bulk``: one sweep, one grouped re-prune, and a
 compaction of both stores on the device). Overwriting a live label deletes
 its old row first.
+
+``to_query_sharded(mesh)`` cuts batch searches over a mesh of devices (slice
+i on device i, against a replica of the graph there), and
+``bulk_build_device(..., _deferred=True)`` yields once per build segment, for
+the data-sharded ``parallel.sharded_graph.ShardedHNSW``.
 """
 
 from __future__ import annotations
@@ -405,7 +410,8 @@ class HNSWIndex(DeviceVectorIndex):
         batch: Optional[int] = None,
         scan_batches: Optional[int] = None,
         assume_normalized: bool = False,
-    ) -> None:
+        _deferred: bool = False,
+    ):
         """Build the whole index from a dataset already on the index's device.
 
         ``data`` [N, dim] (or a larger buffer of which the first ``n`` rows
@@ -415,7 +421,30 @@ class HNSWIndex(DeviceVectorIndex):
         ``graph_build.build_scan``, ``scan_batches`` batches of ``batch``
         rows per call; the last batches go through the pow2 chunks of
         ``add_vector_batch``. The index must be empty; ``labels`` defaults
-        to 0..N-1."""
+        to 0..N-1.
+
+        ``_deferred=True`` checks and preprocesses, then returns a generator
+        instead of running to the end: each ``next()`` launches ONE
+        ``build_scan`` segment and yields before it adopts the segment's
+        result, so a multi-shard caller (``parallel.sharded_graph``) can
+        drive the shards' builds in turns. The index's lock stays held until
+        the generator is exhausted or closed, so the caller must exhaust it."""
+        steps = self._bulk_build_steps(data, n, labels, batch=batch,
+                                       scan_batches=scan_batches,
+                                       assume_normalized=assume_normalized)
+        next(steps)  # the checks and the preprocessing run now
+        if _deferred:
+            return steps
+        for _ in steps:
+            pass
+        return None
+
+    def _bulk_build_steps(self, data, n, labels, *, batch, scan_batches,
+                          assume_normalized):
+        """``bulk_build_device`` as a generator. One hold of the index's
+        lock spans the checks, the preprocessing and every segment, so no
+        query or write sees a half-built graph; it yields once after the
+        preprocessing and once after each segment's launch."""
         with self._lock:
             if self.store.count or self.upper.count:
                 raise ValueError("bulk_build_device requires an empty index")
@@ -499,6 +528,7 @@ class HNSWIndex(DeviceVectorIndex):
             )
             self.upper.host["vec"][:n_up] = upper_nodes
             self.upper._host_stale.discard("vec")  # the host mirror is exact
+            yield  # checked and preprocessed
 
             # --- construction: build_scan segments, then the pow2 tail ---
             devs, udev, ctx = self._device_ctx(nav=config.build_nav_bf16)
@@ -515,6 +545,7 @@ class HNSWIndex(DeviceVectorIndex):
                     urows[off0 : off0 + T * batch].reshape(T, batch),
                     **self._build_kw(),
                 )
+                yield
                 self._build_dropped.append(dropped)
                 pos += T
                 self.log("debug", f"bulk build: {pos * batch}/{n}")
@@ -993,14 +1024,19 @@ class HNSWIndex(DeviceVectorIndex):
         q, qnorms = self.preprocess_queries(np.atleast_2d(queries))
         return self.to_device(q), self.to_device(qnorms)
 
-    def search_knn(self, queries: np.ndarray, k: int, ef: int):
+    def search_knn(self, queries: np.ndarray, k: int, ef: int, *, mesh=None):
         """Device graph search of host queries; returns numpy (dists [B, ef'],
         ids [B, ef']) with row ids. The JAX package pads the batch to a power
         of two (one compiled shape per bucket); rows are independent, so the
-        port runs the batch as it is."""
+        port runs the batch as it is. With a mesh (``mesh``, else
+        ``to_query_sharded``'s) the batch is cut over its devices
+        (``_maybe_shard_queries``)."""
         with self._lock:
             qd, qn = self._device_queries(queries)
-            bd, bi = self._device_search(qd, qn, k, ef)
+            bd, bi = self._maybe_shard_queries(
+                lambda q, n, _m, dev: self._device_search(q, n, k, ef, device=dev),
+                qd, qn, mesh=mesh,
+            )
             return bd.cpu().numpy(), bi.cpu().numpy()
 
     def search_knn_device(self, qd: torch.Tensor, k: int, ef: int, qn=None):
@@ -1013,11 +1049,18 @@ class HNSWIndex(DeviceVectorIndex):
 
     def _device_search(
         self, qd, qn, k: int, ef: int, *, init_state=None, iter_budget=None,
-        return_state=False,
+        return_state=False, device=None,
     ):
+        """The search on the index's device, or on ``device`` against a
+        replica of the index's tensors there (``_replica``)."""
         count = self.store.count
         bq = qd.shape[0]
         dev, udev, ctx = self._device_ctx(nav=config.search_nav_bf16)
+        if device is not None:
+            r = self._replica(device, {"links0": dev["links0"], "upper_row": dev["upper_row"],
+                                       "ulinks": udev["links"], **ctx._asdict()})
+            dev, udev = r, {"links": r["ulinks"]}
+            ctx = StoreCtx(**{f: r[f] for f in StoreCtx._fields})
         if init_state is None:
             ep = self.entry_id
             cur = torch.full((bq,), ep, dtype=torch.int32, device=qd.device)

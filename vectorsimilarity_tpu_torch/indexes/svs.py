@@ -34,8 +34,10 @@ into the host mirrors and the reverse edges appended there
 (``native_bridge.apply_reverse_edges``), overflowing rows re-pruned on the
 device.
 
-Not ported yet: a query mesh with the deferred bulk build belongs to the
-sharded slice (ROADMAP.md queue 1, item 5).
+``to_query_sharded(mesh)`` cuts batch searches over a mesh of devices
+(slice i on device i, against a replica of the graph there), and
+``bulk_build_device(..., _deferred=True)`` yields once per build segment, for
+the data-sharded ``parallel.sharded_graph.ShardedVamana``.
 """
 
 from __future__ import annotations
@@ -416,7 +418,8 @@ class SVSIndex(DeviceVectorIndex):
         batch: Optional[int] = None,
         scan_batches: Optional[int] = None,
         assume_normalized: bool = False,
-    ) -> None:
+        _deferred: bool = False,
+    ):
         """Build the whole index from a dataset already on the index's device.
 
         ``data`` [N, dim] (or a larger buffer whose first ``n`` rows are the
@@ -427,7 +430,28 @@ class SVSIndex(DeviceVectorIndex):
         ``batch`` rows per call, with the medoid refreshed between calls
         once the built prefix grew by an eighth; the last batches go
         through the pow2 chunks of ``add_vector_batch``. The index must be
-        empty; ``labels`` defaults to 0..N-1."""
+        empty; ``labels`` defaults to 0..N-1.
+
+        ``_deferred=True`` checks and preprocesses, then returns a generator
+        that launches one ``vamana_build_scan`` segment per ``next()``
+        (``HNSWIndex.bulk_build_device``); the index's lock stays held until
+        it is exhausted or closed, so the caller must exhaust it."""
+        steps = self._bulk_build_steps(data, n, labels, batch=batch,
+                                       scan_batches=scan_batches,
+                                       assume_normalized=assume_normalized)
+        next(steps)  # the checks and the preprocessing run now
+        if _deferred:
+            return steps
+        for _ in steps:
+            pass
+        return None
+
+    def _bulk_build_steps(self, data, n, labels, *, batch, scan_batches,
+                          assume_normalized):
+        """``bulk_build_device`` as a generator. One hold of the index's
+        lock spans the checks, the preprocessing and every segment, so no
+        query or write sees a half-built graph; it yields once after the
+        preprocessing and once after each segment's launch."""
         with self._lock:
             if self.store.count:
                 raise ValueError("bulk_build_device requires an empty index")
@@ -487,6 +511,7 @@ class SVSIndex(DeviceVectorIndex):
                     self.store.host["slot"][i] = self.labels.add(int(labs[i]), i)
             else:
                 self.labels.label_to_id = {int(l): i for i, l in enumerate(labs)}
+            yield  # checked and preprocessed
 
             # --- construction: scan segments, medoid refreshes, pow2 tail ---
             devs = self.store.device_arrays()
@@ -502,6 +527,7 @@ class SVSIndex(DeviceVectorIndex):
                 state, dropped = graph_build.vamana_build_scan(
                     state, ctx, offsets, n=batch, **self._build_kw()
                 )
+                yield
                 self._build_dropped.append(dropped)
                 pos += T
                 built = pos * batch
@@ -712,13 +738,14 @@ class SVSIndex(DeviceVectorIndex):
             ws = max(ws, params.svsRuntimeParams.bufferCapacity)
         return max(ws, k)
 
-    def search_knn(self, queries: np.ndarray, k: int, ef: int):
+    def search_knn(self, queries: np.ndarray, k: int, ef: int, *, mesh=None):
         """Device beam search of host queries; returns numpy (dists [B, ef'],
         ids [B, ef']) with row ids, ef' = min(pow2(max(ef, k)), pow2(count)).
         The JAX package splits high-ef batches into sub-batches; the port
-        runs one batch (ROADMAP.md section 3)."""
+        runs one batch (ROADMAP.md section 3). With a mesh (``mesh``, else
+        ``to_query_sharded``'s) the batch is cut over its devices."""
         with self._lock:
-            bd, bi = self._search_knn_locked(np.atleast_2d(queries), k, ef)
+            bd, bi = self._search_knn_locked(np.atleast_2d(queries), k, ef, mesh=mesh)
             return bd.cpu().numpy(), bi.cpu().numpy()
 
     def search_resumable(self, queries: np.ndarray, k: int, ef: int, state=None):
@@ -733,12 +760,13 @@ class SVSIndex(DeviceVectorIndex):
             return bd.cpu().numpy(), bi.cpu().numpy(), st
 
     def _search_knn_locked(self, queries: np.ndarray, k: int, ef: int,
-                           *, init_state=None, return_state: bool = False):
+                           *, init_state=None, return_state: bool = False, mesh=None):
         """The beam on the device; returns device tensors. The batch is
         padded to a power of two with copies of its last query and the beam
         width is ef rounded up to a power of two, as in the JAX package (the
-        results depend on the width)."""
-        count = self.store.count
+        results depend on the width). A batch search (not a resumed one) is
+        cut over the query mesh where there is one
+        (``_maybe_shard_queries``)."""
         q, qnorms, qmeta = self.preprocess_queries(queries)
         nq = len(q)
         bpad = pow2_bucket(nq)
@@ -749,28 +777,39 @@ class SVSIndex(DeviceVectorIndex):
                 qnorms = np.concatenate([qnorms, np.repeat(qnorms[-1:], pad)])
             if qmeta is not None:
                 qmeta = tuple(np.concatenate([m, np.repeat(m[-1:], pad)]) for m in qmeta)
-        dev = self.store.device_arrays()
-        ctx = self._ctx(dev)
         qd = self.to_device(q)
         qn = None if qnorms is None else torch.from_numpy(qnorms).to(self.device)
         qm = None if qmeta is None else tuple(torch.from_numpy(m).to(self.device) for m in qmeta)
         if self.quantized:
             qd, qm = self._primary_queries(qd)  # the beam runs in the primary space
-        e = torch.full((bpad,), self.entry_id, dtype=torch.int32, device=self.device)
+        if init_state is None and not return_state:
+            bd, bi = self._maybe_shard_queries(
+                lambda q_, n_, m_, dev: self._beam(q_, n_, m_, k, ef, device=dev),
+                qd, qn, qm, mesh=mesh,
+            )
+            return bd[:nq], bi[:nq]
+        bd, bi, state, _, _ = self._beam(qd, qn, qm, k, ef, init_state=init_state,
+                                         return_state=True)
+        return bd[:nq], bi[:nq], state
+
+    def _beam(self, qd, qn, qm, k: int, ef: int, *, device=None, **kw):
+        """The beam from the medoid entry on the index's device, or on
+        ``device`` against a replica of the index's tensors there
+        (``_replica``); ``kw`` carries ``beam_search``'s resume arguments."""
+        dev = self.store.device_arrays()
+        links, ctx = dev["links"], self._ctx(dev)
+        if device is not None:
+            r = self._replica(device, {"links": links, **ctx._asdict()})
+            links, ctx = r["links"], StoreCtx(**{f: r[f] for f in StoreCtx._fields})
+        e = torch.full((qd.shape[0],), self.entry_id, dtype=torch.int32, device=qd.device)
         ed = dists_to_ids(qd, e[:, None], ctx, metric=self.metric, kind=self.store_kind,
                           q_norm=qn, q_meta=qm)[:, 0]
-        ef_pad = min(pow2_bucket(max(ef, k)), max(pow2_bucket(count), 1))
-        out = beam_search(
-            qd, ctx, dev["links"], None, e, ed, self.store.capacity,
+        ef_pad = min(pow2_bucket(max(ef, k)), max(pow2_bucket(self.store.count), 1))
+        return beam_search(
+            qd, ctx, links, None, e, ed, self.store.capacity,
             ef=ef_pad, metric=self.metric, kind=self.store_kind, q_norm=qn, q_meta=qm,
-            expand=config.resolve_search_expand(ef),
-            init_state=init_state, return_state=return_state,
+            expand=config.resolve_search_expand(ef), **kw,
         )
-        if return_state:
-            bd, bi, state, _, _ = out
-            return bd[:nq], bi[:nq], state
-        bd, bi = out
-        return bd[:nq], bi[:nq]
 
     # ------------------------------------------------------------------
     # Re-rank (two-level / LeanVec secondary)

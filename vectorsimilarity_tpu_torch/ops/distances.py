@@ -11,7 +11,8 @@ Distance conventions match the reference exactly:
 
 fp32 matmuls run in IEEE fp32 (``config`` disables TF32). Tie order is the
 JAX package's: equal distance -> lower id first (``_lex_topk``).
-SQ8/SQ4 scoring is not ported yet.
+SQ8/SQ4 stores (SVS's quantized codes) are scored asymmetrically against
+float queries (``scores_sq8``, ``scores_sq4``).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 
 from .. import config  # noqa: F401  (sets the fp32 matmul precision)
 from ..types import VecSimMetric
+from .quantize import unpack4
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -105,6 +107,61 @@ def scores_int(
 
 
 # ---------------------------------------------------------------------------
+# SQ8 / SQ4 asymmetric: uint8 storage codes vs float queries
+# ---------------------------------------------------------------------------
+
+
+def scores_sq8(
+    queries: torch.Tensor,
+    codes: torch.Tensor,
+    vmin: torch.Tensor,
+    delta: torch.Tensor,
+    xsumsq: Optional[torch.Tensor],
+    metric: VecSimMetric,
+) -> torch.Tensor:
+    """Asymmetric SQ8 distance matrix [B, N].
+
+    Storage: ``codes`` u8 [N, D] with per-row ``vmin`` / ``delta`` /
+    ``xsumsq`` (f32 [N]), the SoA form of the reference's inline
+    ``[u8[dim] | min | delta | sum x | sum x^2]`` blob
+    (``spaces/computer/preprocessors.h:150-162``). Queries stay float:
+
+      IP(x, y) = min * sum y + delta * sum(q_i * y_i)   (IP.cpp:35-71)
+      IP dist  = 1 - IP(x, y)
+      L2 dist  = sum x^2 - 2 IP(x, y) + sum y^2         (L2.cpp:30-46)
+
+    The product is one fp32 matmul over the codes (IEEE fp32, TF32 off).
+    """
+    metric = VecSimMetric(metric)
+    q = queries.to(torch.float32)
+    qdot = q @ codes.to(torch.float32).T  # [B, N]
+    ysum = torch.sum(q, dim=-1, keepdim=True)
+    ip = vmin[None, :] * ysum + delta[None, :] * qdot
+    if metric in (VecSimMetric.IP, VecSimMetric.Cosine):
+        return 1.0 - ip
+    ysumsq = torch.sum(q * q, dim=-1, keepdim=True)
+    return xsumsq[None, :] - 2.0 * ip + ysumsq
+
+
+def scores_sq4(
+    queries: torch.Tensor,
+    packed: torch.Tensor,
+    vmin: torch.Tensor,
+    delta: torch.Tensor,
+    xsumsq: Optional[torch.Tensor],
+    metric: VecSimMetric,
+) -> torch.Tensor:
+    """Asymmetric 4-bit (LVQ level 1) distance matrix [B, N]: the split-packed
+    codes (``quantize.pack4``) unpacked, then ``scores_sq8``. An odd dim pads
+    the query with a zero column to the codes' even width."""
+    codes = unpack4(packed)
+    pad = codes.shape[-1] - queries.shape[-1]
+    if pad:
+        queries = torch.cat([queries, queries.new_zeros((queries.shape[0], pad))], dim=1)
+    return scores_sq8(queries, codes, vmin, delta, xsumsq, metric)
+
+
+# ---------------------------------------------------------------------------
 # Pairwise distance between two single vectors (GetDistanceFrom parity)
 # ---------------------------------------------------------------------------
 
@@ -182,7 +239,11 @@ def _score_chunk(queries, store, lo, hi, metric, kind, query_norms):
     if kind == "int":
         data, norms = store
         return scores_int(queries, view(data), metric, view(norms), query_norms)
-    raise ValueError(f"store kind {kind!r} is not ported")
+    if kind in ("sq8", "sq4"):
+        codes, vmin, delta, xsumsq = store
+        fn = scores_sq8 if kind == "sq8" else scores_sq4
+        return fn(queries, view(codes), view(vmin), view(delta), view(xsumsq), metric)
+    raise ValueError(f"unknown store kind {kind!r}")
 
 
 def streaming_topk(
@@ -206,8 +267,9 @@ def streaming_topk(
     the reference's per-vector loop + bounded heap
     (``algorithms/brute_force/brute_force.h:242-291``).
 
-    ``store`` is ("float") ``(data[N,D], sqnorms[N] or None)`` or ("int")
-    ``(data[N,D], norms[N] or None)``. Rows with index >= count are masked
+    ``store`` is ("float") ``(data[N,D], sqnorms[N] or None)``, ("int")
+    ``(data[N,D], norms[N] or None)`` or ("sq8", "sq4") ``(codes, vmin[N],
+    delta[N], xsumsq[N] or None)``. Rows with index >= count are masked
     to +inf; unfilled slots (k > count) are (+inf, -1).
 
     Timeout segmentation: ``seg_chunks`` chunks starting at ``start_chunk``,
