@@ -232,3 +232,46 @@ def test_diversity_prune(lane, metric, nav):
         m=8, metric=TMetric[metric], kind=kind, chunk_rows=5,
     )
     assert np.array_equal(np_of(chunked), np_of(ref))
+
+
+def _port_loops(tctx, tq, tqn, lane, metric, g):
+    """The port's greedy descent and beam over one level each, as a tuple."""
+    kind = _kind(lane)
+    entry = np.full(B, g["entry"], dtype=np.int32)
+    ed = torch.from_numpy(_entry_dists(tq, tctx, entry, lane, metric, tqn))
+    kw = dict(metric=TMetric[metric], kind=kind, q_norm=tqn)
+    c, cd = tgs.greedy_level(tq, tctx, torch.from_numpy(g["ulinks"]),
+                             torch.from_numpy(g["upper_row"]), torch.from_numpy(entry), ed, 1,
+                             **kw)
+    d, i = tgs.beam_search(tq, tctx, torch.from_numpy(g["links0"]), None, c, cd, N, ef=24,
+                           expand=4, **kw)
+    return c, cd, d, i
+
+
+def test_cpu_loops_run_eagerly_and_key_on_their_tensors(monkeypatch):
+    """Off a CUDA device no chunk is captured or replayed, and repeated
+    calls answer alike. A chunk's key holds the identity of the tensors its
+    kernels read in place: the same context gives the same key, a context
+    tensor replaced by an equal one of the same shape another."""
+    lane, metric = "f32", "L2"
+    g, _, (tctx, tq, tqn) = _setup(lane, metric)
+    keys, real = [], tgs.chunk_key
+
+    def spy(*a):
+        keys.append(real(*a))
+        return keys[-1]
+
+    monkeypatch.setattr(tgs, "chunk_key", spy)
+    counts = tgs.graph_captures, tgs.graph_replay_iters
+    first = _port_loops(tctx, tq, tqn, lane, metric, g)
+    again = _port_loops(tctx, tq, tqn, lane, metric, g)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    assert (tgs.graph_captures, tgs.graph_replay_iters) == counts == (0, 0)
+    assert len(keys) == 4 and keys[:2] == keys[2:]
+    moved = tctx._replace(data=tctx.data.clone(), sqnorm=tctx.sqnorm.clone())
+    replaced = _port_loops(moved, tq, tqn, lane, metric, g)
+    for a, b in zip(first, replaced):
+        assert torch.equal(a, b)
+    assert keys[4] != keys[0] and keys[5] != keys[1]
+    assert [k[0] for k in keys[4:]] == ["greedy", "beam"]

@@ -281,3 +281,19 @@ def test_growth_keeps_the_graph():
     assert _graph_of(grown) == _graph_of(sized)
     truth = _truth(x, x[:20])
     assert _recall(grown.topk_query_batch(x[:20], K, _params(tvs, 64)), truth) >= 0.9
+
+
+def test_nav_shadow_refreshes_in_place():
+    """Rows written into the store refresh the bf16 navigation shadow in
+    place, so it keeps the address that captured graph chunks read; a store
+    that grows to new tensors gets a new shadow."""
+    x = unit_rows(np.random.default_rng(9), 1088, 16)
+    idx = tvs.create_index(hnsw_params(tvs), device="cpu")
+    idx.add_vector_batch(x[:64], range(64))
+    nav = idx._device_ctx(nav=True)[2].nav
+    idx.add_vector_batch(x[64:96], range(64, 96))
+    ctx = idx._device_ctx(nav=True)[2]
+    assert ctx.nav is nav and torch.equal(nav, ctx.data.to(torch.bfloat16))
+    idx.add_vector_batch(x[96:], range(96, 1088))  # past the first 1024 rows
+    ctx = idx._device_ctx(nav=True)[2]
+    assert ctx.nav is not nav and torch.equal(ctx.nav, ctx.data.to(torch.bfloat16))

@@ -127,3 +127,54 @@ def test_multi_value_on_card(card):
                          list(range(200)) * 2)
     for r in idx.topk_query_batch(unit_rows(rng, 8, D), K):
         assert len(r) == K == len(set(r.ids.tolist()))
+
+
+def _counts():
+    return graph_search.graph_captures, graph_search.graph_replay_iters
+
+
+@pytest.mark.parametrize("ef", [200, 64])  # 200: the 4-wide beam expansion
+def test_second_search_replays_captured_chunks(card, ef):
+    """A search of a shape already seen replays its chunks as CUDA graphs and
+    answers bit for bit as the first, eager search: every distance and id."""
+    rng = np.random.default_rng(8)
+    x, q = unit_rows(rng, 20_000, 96), unit_rows(rng, 1024, 96)
+    idx = HNSWIndex(HNSWParams(type=VecSimType.FLOAT32, dim=96, metric=VecSimMetric.Cosine,
+                               M=16, efConstruction=100), device=card)
+    idx.bulk_build_device(torch.from_numpy(x).to(card))
+    qd = torch.from_numpy(q).to(card)
+    first = idx.search_knn_device(qd, K, ef)
+    c0, r0 = _counts()
+    second = idx.search_knn_device(qd, K, ef)
+    c1, r1 = _counts()
+    assert c1 > c0 and r1 > r0
+    assert torch.equal(second[0], first[0]) and torch.equal(second[1], first[1])
+
+
+def test_replay_after_the_store_grows(card):
+    """Chunks captured over the store's tensors are not replayed once the
+    store has grown to new ones: the searches after the growth answer as a
+    fresh copy of the index, whose first search is eager."""
+    rng = np.random.default_rng(9)
+    x, q = unit_rows(rng, 8192, 64), unit_rows(rng, 1024, 64)
+    qd = torch.from_numpy(q).to(card)
+    idx = HNSWIndex(HNSWParams(type=VecSimType.FLOAT32, dim=64, metric=VecSimMetric.Cosine,
+                               M=16, efConstruction=100), device=card)
+    n = 4096
+    idx.add_vector_batch(x[:n], range(n))
+    for _ in range(2):
+        idx.search_knn_device(qd, K, 200)
+    data = idx.store.device_arrays()["data"]
+    ptr, cap = data.data_ptr(), idx.store.capacity
+    while idx.store.capacity == cap and n < len(x):
+        idx.add_vector_batch(x[n : n + 512], range(n, n + 512))
+        n += 512
+    assert idx.store.device_arrays()["data"].data_ptr() != ptr
+    got = [idx.search_knn_device(qd, K, 200)]
+    r0 = graph_search.graph_replay_iters
+    got.append(idx.search_knn_device(qd, K, 200))
+    assert graph_search.graph_replay_iters > r0
+    fresh = hnsw_from_state(export_hnsw_state(idx), device=card)
+    want = fresh.search_knn_device(qd, K, 200)
+    for d, i in got:
+        assert torch.equal(i, want[1]) and torch.equal(d, want[0])

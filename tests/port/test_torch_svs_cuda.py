@@ -177,3 +177,17 @@ def test_tiered_svs_flat_tier_runs_k1(card):
     finally:
         gate.set()
         pool.shutdown()
+
+
+def test_second_search_replays_captured_chunks(card):
+    """An SVS search (Q4x8: the quantized gathers, with the query metadata)
+    of a shape already seen replays its beam's chunks as CUDA graphs and
+    answers bit for bit as the first, eager search."""
+    x = embedding_rows(np.random.default_rng(10), 20_000 + 1024, 96)
+    idx = create_index(_params("Q4x8", 96, metric="L2"))
+    idx.bulk_build_device(torch.from_numpy(x[:20_000]).to(card))
+    first = idx.search_knn(x[20_000:], K, 200)
+    c0, r0 = gs.graph_captures, gs.graph_replay_iters
+    second = idx.search_knn(x[20_000:], K, 200)
+    assert gs.graph_captures > c0 and gs.graph_replay_iters > r0
+    assert np.array_equal(second[1], first[1]) and np.array_equal(second[0], first[0])

@@ -248,13 +248,19 @@ class HNSWIndex(DeviceVectorIndex):
         return dev, udev, ctx
 
     def _nav_shadow(self, data: torch.Tensor) -> torch.Tensor:
-        """bf16 shadow of the device data, cached while the data tensor is
-        unchanged: the store writes its tensors in place, so the cache keys
-        on the tensor and its in-place version counter."""
-        key = (data, data._version)
+        """bf16 shadow of the device data, kept while the data tensor is the
+        same: the store writes its tensors in place, so rows written since
+        (a newer version counter) are converted into the shadow in place.
+        The shadow keeps its address, which the graph loops' captured
+        chunks read, so they replay after a write and keep no old shadow
+        alive."""
         cached = self._nav_cache
-        if cached is not None and cached[0] is key[0] and cached[1] == key[1]:
-            return cached[2]
+        if cached is not None and cached[0] is data:
+            nav = cached[2]
+            if cached[1] != data._version:
+                nav.copy_(data)
+                self._nav_cache = (data, data._version, nav)
+            return nav
         nav = data.to(torch.bfloat16)
         self._nav_cache = (data, data._version, nav)
         return nav

@@ -17,6 +17,13 @@ loop runs:
   it), so running a row on after it finished gives the same result as the
   JAX loop, which stops only when every row is done. The beam never runs
   more than the JAX cap of iterations.
+- On a CUDA device, a chunk of iterations between two reads is replayed as
+  one captured CUDA graph (``_ChunkGraphs``) once its key, everything the
+  chunk's kernels read in place, has been seen in an earlier call; the
+  first sighting runs eagerly, so one-off shapes never pay a capture. The
+  replayed kernels are the eager ones in the same order, so the results
+  are bit for bit the eager path's; the read between chunks stays on the
+  host.
 - The ``fori_loop`` of the diversity prune has a fixed trip count: a host
   loop of launches, with no read.
 
@@ -34,6 +41,8 @@ are masked out before the add. Writes that the JAX package drops with
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import torch
@@ -47,6 +56,9 @@ from .quantize import unpack4
 # benchmark scripts read and reset them.
 host_reads = 0
 iterations = 0
+# Chunks captured as CUDA graphs, and loop iterations run inside replays.
+graph_captures = 0
+graph_replay_iters = 0
 
 _INT_MAX = 2**31 - 1
 
@@ -152,6 +164,11 @@ def _neighbor_gather(links: torch.Tensor, row_of: Optional[torch.Tensor], level)
     return nbrs_of
 
 
+def _meta(meta) -> Optional[tuple]:
+    """``q_meta`` from its two entries of a loop's inputs (None, None: none)."""
+    return None if meta[0] is None else tuple(meta)
+
+
 def _all_set(flags: torch.Tensor) -> bool:
     """One device-to-host read: whether every row's flag is set."""
     global host_reads
@@ -167,6 +184,127 @@ def _chunks(first: int):
     while True:
         yield n
         n = min(2 * n, poll)
+
+
+# ---------------------------------------------------------------------------
+# Chunks of iterations replayed as CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+def _ident(t: Optional[torch.Tensor]):
+    """What a captured kernel holds of a tensor it reads in place."""
+    return None if t is None else (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+
+
+def _form(t: Optional[torch.Tensor]):
+    return None if t is None else (tuple(t.shape), t.dtype)
+
+
+def chunk_key(loop: str, params: tuple, args: tuple, state: tuple, held: tuple) -> tuple:
+    """The key of a loop's chunks, without their length: the loop's name and
+    parameters, the device, the shapes and dtypes of the per-call inputs
+    ``args`` (copied into a graph's buffers) and of the loop ``state``, the
+    identity of each tensor in ``held`` (read in place by the captured
+    kernels: the links, ``row_of``, the store context) and the fp32 matmul
+    precision that the captured products were planned under."""
+    return (loop, params, state[0].device, tuple(_form(a) for a in args),
+            tuple(_form(t) for t in state), tuple(_ident(t) for t in held),
+            torch.get_float32_matmul_precision())
+
+
+def _run_steps(step, args: tuple, state: tuple, steps: int) -> tuple:
+    for _ in range(steps):
+        state = step(args, state)
+    return state
+
+
+class _Graph(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    args: tuple  # the buffers a replay copies the call's inputs into
+    state: tuple  # ... and the loop state into
+    out: tuple  # the state after the chunk, in the graph's pool
+    held: tuple  # the tensors read in place, kept alive with the graph
+
+
+class _ChunkGraphs:
+    """CUDA graphs of loop chunks by key, least recently used first out.
+
+    ``run`` replays a chunk whose key was seen in an earlier call (a key
+    holds the chunk's length), capturing it at that second sighting; the
+    first sighting, every sighting within one call, and every chunk off a
+    CUDA device run eagerly. A captured graph keeps its buffers, a private
+    pool of one iteration's intermediates, and references to the tensors it
+    reads in place, so no address it reads is reused while it lives;
+    evicting it frees the pool. One lock orders captures and replays: a
+    replay's copies in, launch and copy out are enqueued together."""
+
+    def __init__(self, slots: int, seen_slots: int):
+        self.slots, self.seen_slots = slots, seen_slots
+        self.graphs: OrderedDict = OrderedDict()
+        self.seen: OrderedDict = OrderedDict()  # key -> the call that last ran it eagerly
+        self.streams: dict = {}  # device -> capture stream
+        self.lock = threading.Lock()
+
+    def run(self, key, step, args: tuple, state: tuple, steps: int, held: tuple, call) -> tuple:
+        """``steps`` calls of ``step(args, state)`` from ``state``; returns
+        the new state. ``call`` is a token of the calling loop."""
+        global graph_captures, graph_replay_iters
+        if state[0].device.type != "cuda":
+            return _run_steps(step, args, state, steps)
+        with self.lock:
+            g = self.graphs.get(key)
+            if g is not None:
+                self.graphs.move_to_end(key)
+            elif self.seen.get(key, call) is not call:
+                g = self._capture(key, step, args, state, steps, held)
+                graph_captures += 1
+            else:
+                self.seen[key] = call
+                self.seen.move_to_end(key)
+                if len(self.seen) > self.seen_slots:
+                    self.seen.popitem(last=False)
+            if g is not None:
+                with torch.cuda.device(state[0].device):
+                    for buf, a in zip(g.args + g.state, args + state):
+                        if buf is not None:
+                            buf.copy_(a)
+                    g.graph.replay()
+                    out = tuple(t.clone() for t in g.out)
+                graph_replay_iters += steps
+                return out
+        return _run_steps(step, args, state, steps)
+
+    def _capture(self, key, step, args, state, steps, held) -> _Graph:
+        dev = state[0].device
+        with torch.cuda.device(dev):
+            s_args = tuple(None if a is None else a.clone() for a in args)
+            s_state = tuple(t.clone() for t in state)
+            stream = self.streams.get(dev)
+            if stream is None:
+                stream = self.streams[dev] = torch.cuda.Stream(dev)
+            # A warm-up step on the capture stream, so that what the kernels
+            # set up at first use on a stream (the matmul workspace) is not
+            # made inside the graph's pool.
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                step(s_args, s_state)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+                out = _run_steps(step, s_args, s_state, steps)
+            torch.cuda.current_stream(dev).wait_stream(stream)
+        g = self.graphs[key] = _Graph(graph, s_args, s_state, out, held)
+        if len(self.graphs) > self.slots:
+            self.graphs.popitem(last=False)
+        return g
+
+
+# An HNSW search's chunks (the greedy descent's 4, 8, ... per upper level,
+# and the beam's) take ~8 graphs; an HNSW build's, whose upper levels run
+# over row counts that recur from batch to batch, ~150 at 100k x 768. 64
+# slots hold the search's and the build's most used: at 16 the build
+# evicted what it would reuse, capturing 440 chunks at ~30 ms each on an
+# H100 (148 at 64).
+_GRAPHS = _ChunkGraphs(slots=64, seen_slots=256)
 
 
 # ---------------------------------------------------------------------------
@@ -195,26 +333,35 @@ def greedy_level(
     ``config.timeout_poll_iters`` (a descent takes a few hops)."""
     global iterations
     B = q.shape[0]
+    metric = VecSimMetric(metric)
     nbrs_of = _neighbor_gather(links, row_of, level)
     imp = torch.ones((B,), dtype=torch.bool, device=q.device) if active is None else active
-    c, cd = cur, cur_d
+
+    def step(args, state):
+        q, q_norm, *meta = args
+        imp, c, cd = state
+        nbrs = nbrs_of(torch.where(imp, c, 0))  # [B, M]
+        valid = (nbrs >= 0) & imp[:, None]
+        safe = torch.where(valid, nbrs, 0)
+        nd = gathered_dists(q, safe, ctx, metric, kind, q_norm, _meta(meta))
+        nd = torch.where(valid, nd, torch.inf)
+        j = torch.argmin(nd, dim=1, keepdim=True)
+        best_d = nd.gather(1, j)[:, 0]
+        best_i = safe.gather(1, j)[:, 0]
+        imp = best_d < cd
+        return imp, torch.where(imp, best_i, c), torch.where(imp, best_d, cd)
+
+    args = (q, q_norm) + (q_meta or (None, None))
+    state = (imp, cur, cur_d)
+    held = (links, row_of) + tuple(ctx)
+    key = chunk_key("greedy", (metric, kind, level), args, state, held)
+    call = object()
     for steps in _chunks(4):
-        if _all_set(~imp):
+        if _all_set(~state[0]):
             break
-        for _ in range(steps):
-            nbrs = nbrs_of(torch.where(imp, c, 0))  # [B, M]
-            valid = (nbrs >= 0) & imp[:, None]
-            safe = torch.where(valid, nbrs, 0)
-            nd = gathered_dists(q, safe, ctx, metric, kind, q_norm, q_meta)
-            nd = torch.where(valid, nd, torch.inf)
-            j = torch.argmin(nd, dim=1, keepdim=True)
-            best_d = nd.gather(1, j)[:, 0]
-            best_i = safe.gather(1, j)[:, 0]
-            imp = best_d < cd
-            c = torch.where(imp, best_i, c)
-            cd = torch.where(imp, best_d, cd)
+        state = _GRAPHS.run(key + (steps,), step, args, state, steps, held, call)
         iterations += steps
-    return c, cd
+    return state[1], state[2]
 
 
 # ---------------------------------------------------------------------------
@@ -301,9 +448,13 @@ def beam_search(
 
     E = expand
     C = E * links.shape[-1]  # new-candidate block width per iteration
-    iw = torch.arange(W, device=dev)
+    metric = VecSimMetric(metric)
 
-    def body(beam_d, beam_i, beam_e, visited, done):
+    def body(args, state):
+        q, q_norm, *meta, iw = args
+        beam_d, beam_i, beam_e, visited, done, *count = state
+        if count:  # iterations in which some row was still searching
+            count = [count[0] + (~done).any()]
         # The E best unexpanded candidates: the beam is sorted, so they are
         # the first E unexpanded slots.
         unexp = (~beam_e) & (beam_i >= 0)
@@ -341,7 +492,7 @@ def beam_search(
             visited = visited.scatter_add(1, word, torch.where(valid, 1 << shift, 0))
             blocks.append(torch.where(valid, safe, -1))
         new_i = torch.cat(blocks, dim=1) if E > 1 else blocks[0]
-        nd = gathered_dists(q, new_i.clamp(min=0), ctx, metric, kind, q_norm, q_meta)
+        nd = gathered_dists(q, new_i.clamp(min=0), ctx, metric, kind, q_norm, _meta(meta))
         nd = torch.where(new_i >= 0, nd, torch.inf)
         # Merge: one stable sort on distance keeps beam entries ahead of equal
         # new candidates (searchLayer's tie behaviour).
@@ -350,13 +501,18 @@ def beam_search(
         order = order[:, :W]
         out_i = torch.cat([beam_i, new_i], dim=1).gather(1, order)
         out_e = torch.cat([beam_e, beam_e.new_zeros((B, C))], dim=1).gather(1, order)
-        return out_d[:, :W], out_i, out_e, visited, done
+        return (out_d[:, :W], out_i, out_e, visited, done, *count)
 
+    args = (q, q_norm) + (q_meta or (None, None)) + (torch.arange(W, device=dev),)
     state = (beam_d, beam_i, beam_e, visited, done)
+    if return_state:
+        state += (torch.zeros((), dtype=torch.int64, device=dev),)
+    held = (links, row_of) + tuple(ctx)
+    key = chunk_key("beam", (ef, W, E, metric, kind, level), args, state, held)
+    call = object()
     poll = max(config.timeout_poll_iters, 1)
     it = 0
     completed = False
-    count_it = torch.zeros((), dtype=torch.int64, device=dev) if return_state else None
     while True:
         if _all_set(state[4]):
             completed = True
@@ -364,15 +520,12 @@ def beam_search(
         if it >= cap_iters:
             break
         steps = min(poll, cap_iters - it)
-        for _ in range(steps):
-            if count_it is not None:
-                count_it += (~state[4]).any()
-            state = body(*state)
+        state = _GRAPHS.run(key + (steps,), body, args, state, steps, held, call)
         it += steps
         iterations += steps
-    beam_d, beam_i, beam_e, visited, done = state
+    beam_d, beam_i, beam_e, visited, done, *count = state
     if return_state:
-        return beam_d[:, :ef], beam_i[:, :ef], (beam_d, beam_i, beam_e, visited), completed, count_it
+        return beam_d[:, :ef], beam_i[:, :ef], (beam_d, beam_i, beam_e, visited), completed, count[0]
     return beam_d[:, :ef], beam_i[:, :ef]
 
 
