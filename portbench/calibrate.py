@@ -7,8 +7,10 @@ named must share it), each cell's traffic answers every pool batch twice
 through its closed loop at the cell's own load (its clients, its batch),
 the program's state is freed, and the float64 reference judges the
 replies, as a run judges its window. With ``--control`` the reference in
-TF32 (``reference.Reference(..., "tf32")``) is put in the program's place
-and judged the same way: it has to come out not correct. Prints one JSON
+the next precision below the configuration's (``reference.control_precision``:
+TF32 for a float type; for an integer type the exact dot product with its
+norms and quotient in fp16) is put in the program's place and judged the
+same way: it has to come out not correct. Prints one JSON
 line per seed, cell and side with every number of the configuration's
 checks; the benchmark's runs never run this.
 """
@@ -39,11 +41,11 @@ def control_requests(ref, labels, queries, traffic) -> list:
 
 def readings(all_cells: list, seed: int, device, control: bool) -> list[dict]:
     """Every number of the configuration's checks, per cell and side
-    (``program``, and with ``control`` the TF32 reference in its place)."""
+    (``program``, and with ``control`` the control in its place)."""
     import torch
 
     from portbench import harness, judge
-    from portbench.reference import Reference
+    from portbench.reference import Reference, control_precision
 
     st = harness.set_up(all_cells[0], seed, device)
     answers = {}
@@ -61,7 +63,7 @@ def readings(all_cells: list, seed: int, device, control: bool) -> list[dict]:
         torch.cuda.empty_cache()
     sides = [("program", answers)]
     if control:
-        ref = Reference(rows, device, "tf32")
+        ref = Reference(rows, device, control_precision(all_cells[0]["config"]["type"]))
         sides.append(("control", {c["name"]: control_requests(ref, labels, queries, c["traffic"])
                                   for c in all_cells}))
         del ref

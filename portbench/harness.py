@@ -50,8 +50,8 @@ def _sync(device) -> None:
 def set_up(cell: dict, seed: int, device):
     """The cell's inputs from ``seed`` and its index, built by the
     configuration's set-up module: a namespace of ``rows`` and ``queries``
-    (numpy fp32, as made), ``labels``, ``index``, ``setup`` (the module) and
-    ``built`` (the build's figures)."""
+    (numpy, in the configuration's type, as made), ``labels``, ``index``,
+    ``setup`` (the module) and ``built`` (the build's figures)."""
     cfg = cell["config"]
     data = gen.make_data(cfg, cell["traffic"], seed, device)
     rows, queries = data["rows"].cpu().numpy(), data["queries"].cpu().numpy()

@@ -49,7 +49,8 @@ def test_a_cell_added_as_files_is_found_with_no_edit(tmp_path):
     assert [m["name"] for m in cells.metrics_for(bench, "flat-f32-k64", False)] == ["qps"]
 
 
-@pytest.mark.parametrize("name,untraced", [("hnsw-ef200-k10", True), ("flat-f32-k10", False)])
+@pytest.mark.parametrize("name,untraced", [("hnsw-ef200-k10", True), ("flat-f32-k10", False),
+                                           ("flat-s8-k10", False)])
 def test_a_host_clock_reader_reads_an_untraced_window(name, untraced):
     result, notes = harness.run_cell(name, 3, 0.5, True, cells.metrics_for(BENCH, name, True),
                                      device="cpu", t_start=time.perf_counter(),

@@ -18,7 +18,9 @@ from portbench.tests.common import tiny_cell
 
 BENCH = json.loads((Path(__file__).resolve().parents[2] / "BENCHMARK.json").read_text())
 INDEX = {"flat-f32-k10": "vectorsimilarity_tpu_torch.indexes.brute_force.BruteForceIndex",
-         "hnsw-ef200-k10": "vectorsimilarity_tpu_torch.indexes.hnsw.HNSWIndex"}
+         "hnsw-ef200-k10": "vectorsimilarity_tpu_torch.indexes.hnsw.HNSWIndex",
+         "flat-s8-k10": "vectorsimilarity_tpu_torch.indexes.brute_force.BruteForceIndex"}
+TRAFFIC = {"flat-s8-k10": {"batch": 64}}  # the integer cell at D 1,024, B 64
 
 
 def _half_left_out(replies):
@@ -36,6 +38,7 @@ def _one_altered(replies):
 
 def _run(cell_name):
     cell = tiny_cell(cell_name, n_rows=2000)
+    cell["traffic"].update(TRAFFIC.get(cell_name, {}))
     result, _ = harness.run_cell(cell_name, 5, 0.5, False, cells.metrics_for(BENCH, cell_name, False),
                                  device="cpu", t_start=time.perf_counter(), cell=cell)
     return result
